@@ -1,0 +1,124 @@
+"""line3d_tpu_torch.match.scoring (the plain twin of kernels K2/K3 and the
+kernel-side prep) against line3d_tpu.match.scoring / scoring_pallas.
+
+Inputs are those of tests/test_pallas.py:92-160 (random tables with random
+validity, so rows are NOT packed valid-first).  Confidences: rtol 2e-3 /
+atol 2e-4 (the Pallas kernel's A&S acos against arccos).  Prep planes:
+rtol 1e-6, with an absolute floor of 1e-6 of each plane's magnitude (XLA's
+CPU backend fuses multiply-adds, PyTorch does not)."""
+import numpy as np
+import jax.numpy as jnp
+import pytest
+
+from line3d_tpu.match import scoring as js, scoring_pallas as jsp
+from line3d_tpu_torch.match import scoring as ts, scoring_cuda
+from torch_port_helpers import N, T
+
+# (S, M, N, St, seed): M=128 takes the untiled K3 form, M=512 the tiled K2
+SHAPES = {128: (64, 128, 4, 128, 5), 512: (32, 512, 4, 600, 9)}
+
+
+def _inputs(M):
+    S, M, Nc, St, seed = SHAPES[M]
+    rng = np.random.default_rng(seed)
+    f32 = lambda x: np.asarray(x, np.float32)  # noqa: E731
+    cam = rng.integers(-1, Nc, (S, M)).astype(np.int32)
+    return dict(
+        segs_src=f32(rng.uniform(0, 300, (S, 4))), mask_src=np.ones(S, bool),
+        RtKinv=f32(np.eye(3)), C=f32(rng.normal(size=3)), cam=cam,
+        tgt=rng.integers(0, St, (S, M)).astype(np.int32),
+        depths=f32(rng.uniform(0.5, 3.0, (S, M, 4))),
+        valid=(rng.uniform(size=(S, M)) < 0.4) & (cam >= 0),
+        P_nb=f32(rng.normal(size=(Nc, 3, 4))),
+        segs_nb=f32(rng.uniform(0, 300, (Nc, St, 4))))
+
+
+SIG = (np.float32(200.0), np.float32(90.0), np.float32(3.0))
+
+
+def _jax_args(d):
+    return ([jnp.asarray(d[k]) for k in ("segs_src", "mask_src", "RtKinv",
+                                         "C", "cam", "tgt", "depths",
+                                         "valid", "P_nb", "segs_nb")]
+            + [jnp.float32(x) for x in SIG])
+
+
+@pytest.mark.parametrize("M", sorted(SHAPES))
+def test_score_plain_matches_xla_and_pallas(M):
+    d = _inputs(M)
+    ref = N(js.score_matches(*_jax_args(d), row_chunk=32))
+    pal = N(jsp.score_matches_pallas(*_jax_args(d), interpret=True))
+    got = N(scoring_cuda.score(
+        T(d["segs_src"]), T(d["RtKinv"]), T(d["C"]), T(d["cam"]),
+        T(d["tgt"]), T(d["depths"]), T(d["valid"]), T(d["P_nb"]),
+        T(d["segs_nb"]), *(float(x) for x in SIG)))
+    assert (ref > 0).sum() > 50
+    np.testing.assert_allclose(got, ref, rtol=2e-3, atol=2e-4)
+    np.testing.assert_allclose(got, pal, rtol=2e-3, atol=2e-4)
+
+
+def _capture_pallas_inputs(monkeypatch, d):
+    """Run score_matches_pallas eagerly with pallas_call replaced by a
+    recorder; returns the operands the kernel would have received."""
+    seen = []
+
+    def fake_pallas_call(kernel, **kw):
+        def call(*args):
+            seen.append(args)
+            return jnp.zeros(kw["out_shape"].shape, jnp.float32)
+        return call
+    monkeypatch.setattr(jsp.pl, "pallas_call", fake_pallas_call)
+    jsp.score_matches_pallas.__wrapped__(*_jax_args(d), interpret=True)
+    assert len(seen) == 1
+    return seen[0]
+
+
+@pytest.mark.parametrize("M", sorted(SHAPES))
+def test_kernel_inputs_match_pallas_prep(monkeypatch, M):
+    d = _inputs(M)
+    ops = _capture_pallas_inputs(monkeypatch, d)
+    if M <= 256:
+        params, pm, btab, atab = ops
+        need = None
+    else:
+        need, _camlo, _camhi, params, pm, _pm2, btab, atab = ops
+    got = ts.kernel_inputs(
+        T(d["segs_src"]), T(d["RtKinv"]), T(d["C"]), T(d["cam"]),
+        T(d["tgt"]), T(d["depths"]), T(d["valid"]), T(d["P_nb"]),
+        T(d["segs_nb"]), *(float(x) for x in SIG))
+    g_pm, g_btab, g_atab, g_params, g_need = (N(x) for x in got)
+    pm = N(pm)
+    assert g_pm.shape == pm.shape
+    # the direction planes (12-14) normalize d2 ray2 - d1 ray1, which XLA
+    # forms with a fused multiply-add: an ulp of the products, divided by
+    # the direction's length
+    p1, p2 = np.split(d["segs_src"].reshape(-1, 2, 2), 2, axis=1)
+    rays = [np.concatenate([p[:, 0], np.ones((len(p), 1))], 1) for p in
+            (p1, p2)]
+    rays = [r / np.linalg.norm(r, axis=1, keepdims=True) for r in rays]
+    dvec = d["depths"][..., 1:2] * rays[1][:, None] - \
+        d["depths"][..., 0:1] * rays[0][:, None]
+    dlen = np.maximum(np.linalg.norm(dvec, axis=-1), 1e-12)
+    dir_tol = 1e-6 + 4 * 2.0 ** -23 * d["depths"][..., :2].max(-1) / dlen
+    for k in range(pm.shape[1]):
+        w = pm[:, k]
+        atol = dir_tol if k in (12, 13, 14) else \
+            1e-6 * max(1.0, np.abs(w).max())
+        assert np.all(np.abs(g_pm[:, k] - w) <= atol + 1e-6 * np.abs(w)), \
+            f"plane {k}: max err {np.abs(g_pm[:, k] - w).max()}"
+    np.testing.assert_allclose(g_btab, N(btab).reshape(g_btab.shape),
+                               rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(g_atab, N(atab).reshape(-1), rtol=1e-6,
+                               atol=1e-6)
+    np.testing.assert_allclose(g_params, N(params).reshape(-1), rtol=1e-6)
+    if need is not None:
+        np.testing.assert_array_equal(g_need, N(need))
+
+
+def test_row_need_is_one_past_last_valid_slot():
+    valid = np.zeros((4, 300), bool)
+    valid[1, 5] = True
+    valid[2, [0, 129, 257]] = True
+    valid[3, 299] = True
+    np.testing.assert_array_equal(N(ts.row_need(T(valid))),
+                                  [0, 6, 258, 300])
