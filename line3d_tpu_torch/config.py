@@ -17,16 +17,14 @@ class L3DConfig:
     Every field cites the reference symbol it corresponds to.
 
     Fields the port does not read (they steer TPU-only machinery of
-    `line3d_tpu`): `view_pad_multiple`, `stable_shapes`, `capacity_probe`,
-    `diffusion_backend`, `refine_backend`.
+    `line3d_tpu`): `view_pad_multiple`, `stable_shapes`, `capacity_probe`.
 
     The port always matches at each view's exact gate-passing capacity
     (the reference's unbounded match list), so `max_matches_per_segment`
     and `match_block_quota`, which size the capped mode, are not read
-    either.  `uncapped_fallback=False` (the capped mode itself),
-    `perform_diffusion`, `refine_lines`, `bundle_adjust_cameras` and
-    `fh_backend="parallel"` raise NotImplementedError in
-    `line3d_tpu_torch.Line3D` until their ROADMAP items are ported.
+    either.  `uncapped_fallback=False` (the capped mode itself) raises
+    NotImplementedError in `line3d_tpu_torch.Line3D` until its ROADMAP item
+    is ported.
     """
 
     # --- feature detection (commons.h:42-45) ---
@@ -68,12 +66,14 @@ class L3DConfig:
     perform_diffusion: bool = False      # L3D_DEF_PERFORM_RDD
     diffusion_iterations: int = 10       # L3D_RDD_MAX_ITER
     diffusion_mode: str = "reference"    # "reference" lockstep or "true" RDD
-    diffusion_backend: str = "auto"      # TPU-only
+    # "host" (float64 numpy/scipy), "device" (float32 torch on the
+    # Line3D's device) or "auto": "device" on CUDA, "host" on the CPU
+    diffusion_backend: str = "auto"
 
     # --- line refinement (additive, no reference equivalent) ---
     refine_lines: bool = False
     refine_iterations: int = 5
-    refine_backend: str = "auto"         # TPU-only
+    refine_backend: str = "auto"         # as diffusion_backend
 
     # --- joint camera + line bundle adjustment (additive) ---
     bundle_adjust_cameras: bool = False

@@ -2,8 +2,9 @@
 
 The system has no weights: a scene's padded segments and its cameras are
 its whole state.  `scene_from_reference` takes `line3d_tpu`'s `Scene` and
-`CameraSet` by duck typing (their numpy fields) and returns the port's, so
-both packages can be fed bit-identical inputs.
+`CameraSet` by duck typing (their numpy fields) and returns the port's, and
+`affinity_graph_from_reference` does the same for a clustering-stage
+`AffinityGraph`, so both packages can be fed bit-identical inputs.
 """
 from __future__ import annotations
 
@@ -11,6 +12,7 @@ import dataclasses
 
 import numpy as np
 
+from .cluster.affinity import AffinityGraph
 from .config import L3DConfig
 from .core.cameras import CameraSet
 from .scene import Scene
@@ -44,3 +46,15 @@ def scene_from_reference(scene, cameras, device="cpu"):
                 else [list(w) for w in scene.wp_lists],
                 config=config, device=device)
     return out, cams
+
+
+def affinity_graph_from_reference(graph) -> AffinityGraph:
+    """The port's AffinityGraph with copies of the reference graph's edge
+    list and node tables (same dtypes, same order)."""
+    return AffinityGraph(
+        edges_i=np.array(graph.edges_i, np.int32),
+        edges_j=np.array(graph.edges_j, np.int32),
+        edges_w=np.array(graph.edges_w, np.float32),
+        node_view=np.array(graph.node_view, np.int32),
+        node_seg=np.array(graph.node_seg, np.int32),
+        num_nodes=int(graph.num_nodes))

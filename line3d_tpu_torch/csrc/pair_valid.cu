@@ -1,8 +1,12 @@
-// Kernel K1: the pairwise match valid plane, for N neighbor views at once.
+// Kernels K1 and K5: the pairwise match valid plane (K1) and the dense
+// depth planes beside it (K5), for N neighbor views at once.
 //
-// Replaces line3d_tpu/match/pairwise_pallas.py:_kernel_valid (:216, body
+// K1 replaces line3d_tpu/match/pairwise_pallas.py:_kernel_valid (:216, body
 // _compute :44-200 with signs_only=True, called from
-// match_pair_valid_pallas :290).  Same semantics as the reference's
+// match_pair_valid_pallas :290); K5 replaces _kernel (:203, the same body
+// with signs_only=False, called from match_pair_dense_pallas :230).  One
+// template body serves both: kDepths selects K5.  Same semantics as the
+// reference's
 // K_pairwise_matches (cudawrapper.cu:538-611): for every (source segment s,
 // target segment t) of one (view, neighbor) pair, the epipolar transfer of
 // both segments' endpoints through F, the four line intersections, the
@@ -11,14 +15,16 @@
 //
 // Arithmetic follows the Pallas body term for term: the overlap ratios are
 // kept as (numerator, denominator) pairs of SQUARED distances and compared
-// cross-multiplied, and a depth's sign is taken as sign(num * denom) with
-// no divide.  Built with -fmad=false so that every a*b + c rounds twice,
-// as in the reference.
+// cross-multiplied.  K1 takes a depth's sign as sign(num * denom) with no
+// divide; K5 computes the depth itself as the Pallas body does,
+// num * (1 / denom) (not num / denom), -1 where |denom| <= eps, and takes
+// the signs from those depths.  Built with -fmad=false so that every
+// a*b + c rounds twice, as in the reference.
 //
 // What bounds it on the H100: arithmetic.  Each pair costs ~400 f32
 // operations (four intersections, eight divide-free ray normalizations,
-// four triangulations) and writes one byte, so the plane is far above the
-// card's bytes-per-operation line.  The design keeps the per-segment work
+// four triangulations) and writes one byte (K5: 17 bytes), so both planes
+// are far above the card's bytes-per-operation line.  The design keeps the per-segment work
 // out of the pair loop: a block covers 64 targets x 4 sources, the first
 // threads compute each target's and source's line, epipolar lines and
 // endpoint rays once into shared memory, and every thread then evaluates
@@ -122,10 +128,13 @@ __device__ __forceinline__ void overlap_sq_nd(float ax, float ay, float bx,
   if ((len2_ab < 1.0f) || (len2_cd < 1.0f)) num = 0.0f;
 }
 
-// sign carrier of a two-ray depth: num * denom (no divide); ok = |denom| > eps
-__device__ __forceinline__ float tri_sign(const float* r1, const float* r2,
-                                          const float* w0, bool want_first,
-                                          bool& ok) {
+// A two-ray depth (pairwise_pallas.py:166-181); ok = |denom| > eps.  With
+// kDepths the depth num * (1 / denom), -1 when not ok; without, only its
+// sign carrier num * denom (no divide).
+template <bool kDepths>
+__device__ __forceinline__ float tri(const float* r1, const float* r2,
+                                     const float* w0, bool want_first,
+                                     bool& ok) {
   const float a = r1[0] * r1[0] + r1[1] * r1[1] + r1[2] * r1[2];
   const float b = r1[0] * r2[0] + r1[1] * r2[1] + r1[2] * r2[2];
   const float c = r2[0] * r2[0] + r2[1] * r2[1] + r2[2] * r2[2];
@@ -134,6 +143,10 @@ __device__ __forceinline__ float tri_sign(const float* r1, const float* r2,
   const float denom = a * c - b * b;
   ok = fabsf(denom) > kEps;
   const float num = want_first ? (b * e - c * d) : (a * e - b * d);
+  if (kDepths) {
+    const float inv = 1.0f / (ok ? denom : 1.0f);
+    return ok ? num * inv : -1.0f;
+  }
   return num * denom;
 }
 
@@ -164,13 +177,15 @@ __device__ __forceinline__ void stage(const float* seg, bool valid_slot,
   for (int k = 0; k < kNQ; ++k) q[k * stride] = v[k];
 }
 
+// depths: [4, N, Ss, St] (d_p1, d_p2, d_q1, d_q2), written only with kDepths
+template <bool kDepths>
 __global__ void __launch_bounds__(kBT * kBS)
-pair_valid_kernel(const float* __restrict__ segs_src,
-                  const uint8_t* __restrict__ mask_src,
-                  const float* __restrict__ segs_nb,
-                  const uint8_t* __restrict__ mask_nb,
-                  const float* __restrict__ params, int Ss, int St,
-                  uint8_t* __restrict__ out) {
+pair_kernel(const float* __restrict__ segs_src,
+            const uint8_t* __restrict__ mask_src,
+            const float* __restrict__ segs_nb,
+            const uint8_t* __restrict__ mask_nb,
+            const float* __restrict__ params, int Ss, int St,
+            uint8_t* __restrict__ out, float* __restrict__ depths) {
   __shared__ float tq[kNQ][kBT];
   __shared__ float sq[kNQ][kBS];
   __shared__ float prm[kNP];
@@ -231,7 +246,7 @@ pair_valid_kernel(const float* __restrict__ segs_src,
   const bool ov_ok = (n1 > lo2 * e1) && (n2 > lo2 * e2) &&
                      ((n1 > hi2 * e1) || (n2 > hi2 * e2));
 
-  // triangulation signs (cudawrapper.cu:594-601)
+  // triangulation depths or their signs (cudawrapper.cu:594-601)
   const float w0[3] = {prm[27] - prm[30], prm[28] - prm[31],
                        prm[29] - prm[32]};
   const float rp1[3] = {sq[kR1X][i], sq[kR1Y][i], sq[kR1Z][i]};
@@ -244,16 +259,41 @@ pair_valid_kernel(const float* __restrict__ segs_src,
   ray_n(Ms, b1x, b1y, rb1[0], rb1[1], rb1[2]);
   ray_n(Ms, b2x, b2y, rb2[0], rb2[1], rb2[2]);
   bool t1, t2, t3, t4;
-  const float d_p1 = tri_sign(rp1, ra1, w0, true, t1);
-  const float d_p2 = tri_sign(rp2, ra2, w0, true, t2);
-  const float d_q1 = tri_sign(rb1, rq1, w0, false, t3);
-  const float d_q2 = tri_sign(rb2, rq2, w0, false, t4);
+  const float d_p1 = tri<kDepths>(rp1, ra1, w0, true, t1);
+  const float d_p2 = tri<kDepths>(rp2, ra2, w0, true, t2);
+  const float d_q1 = tri<kDepths>(rb1, rq1, w0, false, t3);
+  const float d_q2 = tri<kDepths>(rb2, rq2, w0, false, t4);
 
   const bool pos = (d_p1 > 0.0f) && (d_p2 > 0.0f) && (d_q1 > 0.0f) &&
                    (d_q2 > 0.0f);
   const bool valid = ok1 && ok2 && ok3 && ok4 && ov_ok && pos && t1 && t2 &&
                      t3 && t4 && (sq[kMask][i] > 0.5f) && (tq[kMask][j] > 0.5f);
-  out[(static_cast<size_t>(n) * Ss + s) * St + t] = valid ? 1 : 0;
+  const size_t o = (static_cast<size_t>(n) * Ss + s) * St + t;
+  out[o] = valid ? 1 : 0;
+  if (kDepths) {
+    const size_t plane = static_cast<size_t>(gridDim.z) * Ss * St;
+    depths[o] = d_p1;
+    depths[plane + o] = d_p2;
+    depths[2 * plane + o] = d_q1;
+    depths[3 * plane + o] = d_q2;
+  }
+}
+
+template <bool kDepths>
+int launch(const void* segs_src, const void* mask_src, const void* segs_nb,
+           const void* mask_nb, const void* params, int N, int Ss, int St,
+           void* out, void* depths, void* stream) {
+  if (N == 0 || Ss == 0 || St == 0) return 0;
+  const dim3 block(kBT, kBS);
+  const dim3 grid(l3d::div_up(St, kBT), l3d::div_up(Ss, kBS), N);
+  pair_kernel<kDepths><<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(segs_src),
+      static_cast<const uint8_t*>(mask_src),
+      static_cast<const float*>(segs_nb),
+      static_cast<const uint8_t*>(mask_nb),
+      static_cast<const float*>(params), Ss, St, static_cast<uint8_t*>(out),
+      static_cast<float*>(depths));
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -264,15 +304,15 @@ L3D_EXPORT int l3d_pair_valid(const void* segs_src, const void* mask_src,
                               const void* segs_nb, const void* mask_nb,
                               const void* params, int N, int Ss, int St,
                               void* out, void* stream) {
-  if (N == 0 || Ss == 0 || St == 0) return 0;
-  const dim3 block(kBT, kBS);
-  const dim3 grid(l3d::div_up(St, kBT), l3d::div_up(Ss, kBS), N);
-  pair_valid_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(segs_src),
-      static_cast<const uint8_t*>(mask_src),
-      static_cast<const float*>(segs_nb),
-      static_cast<const uint8_t*>(mask_nb),
-      static_cast<const float*>(params), Ss, St,
-      static_cast<uint8_t*>(out));
-  return static_cast<int>(cudaGetLastError());
+  return launch<false>(segs_src, mask_src, segs_nb, mask_nb, params, N, Ss,
+                       St, out, nullptr, stream);
+}
+
+// K5: as l3d_pair_valid, plus depths [4,N,Ss,St] f32
+L3D_EXPORT int l3d_pair_dense(const void* segs_src, const void* mask_src,
+                              const void* segs_nb, const void* mask_nb,
+                              const void* params, int N, int Ss, int St,
+                              void* out, void* depths, void* stream) {
+  return launch<true>(segs_src, mask_src, segs_nb, mask_nb, params, N, Ss,
+                      St, out, depths, stream);
 }

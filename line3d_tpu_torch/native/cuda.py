@@ -1,7 +1,8 @@
 """Builder and ctypes loader for the port's hand-written CUDA kernels.
 
-`csrc/*.cu` are compiled by `nvcc` for Hopper (`sm_90a`) into one shared
-library with a plain C interface, `_build/libl3d_kernels.so`, at first use.
+`csrc/*.cu` are compiled by `nvcc` for Hopper (`sm_90a`), one process per
+source in parallel, and linked into one shared library with a plain C
+interface, `_build/libl3d_kernels.so`, at first use.
 Each C entry point launches its kernel on the stream it is given and returns
 `cudaGetLastError()`; `check` turns a nonzero code into an exception.
 
@@ -29,9 +30,9 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 LIB_PATH = os.path.join(BUILD_DIR, "libl3d_kernels.so")
 LOG_PATH = os.path.join(BUILD_DIR, "nvcc.log")
 
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
-              "-Xptxas", "-v"]
+_ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = _ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                      "-fmad=false", "-Xptxas", "-v"]
 
 _lock = threading.Lock()
 _lib = None
@@ -43,8 +44,10 @@ _F = ctypes.c_float
 # be cut to 32 bits), every count as c_int
 _SIGNATURES = {
     "l3d_pair_valid": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P],
+    "l3d_pair_dense": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
     "l3d_collin_keep": [_P, _P, _F, _I, _P, _P],
     "l3d_score": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P],
+    "l3d_fma_peak": [_P, _F, _F, _I, _I, _P, _P],
 }
 
 
@@ -73,24 +76,49 @@ def _up_to_date() -> bool:
 
 
 def build(force: bool = False) -> float:
-    """Compile the kernels unless an up-to-date library exists.  Returns
-    the seconds spent compiling (0.0 when nothing was built); the
-    compiler's register and shared-memory report goes to `LOG_PATH`."""
+    """Compile the kernels unless an up-to-date library exists: one nvcc
+    per source, all started together, then one link.  Returns the seconds
+    spent (0.0 when nothing was built); the compiler's register and
+    shared-memory report goes to `LOG_PATH`."""
     if not force and _up_to_date():
         return 0.0
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{LIB_PATH}.{os.getpid()}.tmp"
-    cmd = [nvcc()] + NVCC_FLAGS + ["-I", CSRC, "-o", tmp] + sources()
+    tag = f"{os.getpid()}.tmp"
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    dt = time.perf_counter() - t0
+    jobs = []
+    for src in sources():
+        obj = os.path.join(BUILD_DIR, f"{os.path.basename(src)}.{tag}.o")
+        cmd = [nvcc()] + NVCC_FLAGS + ["-I", CSRC, "-c", "-o", obj, src]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True)))
+    log, failed = [], []
+    for cmd, obj, proc in jobs:
+        out, err = proc.communicate()
+        log.append(" ".join(cmd) + "\n" + out + err)
+        if proc.returncode != 0:
+            failed.append(f"{cmd[-1]} ({proc.returncode}):\n{err[-4000:]}")
+    objs = [obj for _, obj, _ in jobs]
+    try:
+        if not failed:
+            tmp = f"{LIB_PATH}.{tag}"
+            cmd = [nvcc()] + _ARCH + ["-shared", "-o", tmp] + objs
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            log.append(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+            if proc.returncode != 0:
+                failed.append(f"link ({proc.returncode}):\n"
+                              f"{proc.stderr[-4000:]}")
+            else:
+                os.replace(tmp, LIB_PATH)
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
     with open(LOG_PATH, "w") as f:
-        f.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stderr[-4000:]}")
-    os.replace(tmp, LIB_PATH)
-    return dt
+        f.write("\n".join(log))
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
+    return time.perf_counter() - t0
 
 
 def lib():

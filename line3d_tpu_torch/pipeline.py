@@ -4,8 +4,9 @@ Mirrors `line3d_tpu.pipeline.Line3D` and the reference's L3D::Line3D surface
 (line3D.h:58-102): add_view_segments() per view, compute_3d_model(),
 get_result(), save_3d_lines_as_stl/txt().  The five stages
 (compute3Dmodel, line3D.cc:345-374) run with the device stages —
-collinearity and matching — on `device`, and the host stages in numpy and
-the native C++ library.
+collinearity, matching, and when enabled the device forms of diffusion,
+line refinement and bundle adjustment — on `device`, and the host stages in
+numpy and the native C++ library.
 """
 from __future__ import annotations
 
@@ -22,30 +23,17 @@ from .scene import Scene, view_similarities_from_worldpoints, \
 from .match import engine
 from .match.collinearity import collinearity_maps_fast, \
     apply_collinearity_exact_fallback
-from .cluster import affinity, fh
+from .cluster import affinity, fh, diffusion as diffusion_mod
 from .fit import lines as fit_lines
 from .io import writers
 
 
-def _check_config(cfg: L3DConfig, perform_diffusion: bool):
-    """Options of line3d_tpu the port does not run yet (ROADMAP.md,
-    Queue 1)."""
-    todo = {
-        "perform_diffusion": (perform_diffusion,
-                              "cluster/diffusion.py (ROADMAP Queue 1)"),
-        "refine_lines": (cfg.refine_lines,
-                         "fit/refine.py (ROADMAP Queue 1)"),
-        "bundle_adjust_cameras": (cfg.bundle_adjust_cameras,
-                                  "fit/bundle.py (ROADMAP Queue 1)"),
-        "fh_backend='parallel'": (cfg.fh_backend != "exact",
-                                  "the round-parallel F-H mode"),
-        "uncapped_fallback=False": (not cfg.uncapped_fallback,
-                                    "the capped matching mode"),
-    }
-    for name, (on, item) in todo.items():
-        if on:
-            raise NotImplementedError(
-                f"line3d_tpu_torch: {name} is not ported yet ({item})")
+def _check_config(cfg: L3DConfig):
+    """The option of line3d_tpu the port does not run yet (ROADMAP.md)."""
+    if not cfg.uncapped_fallback:
+        raise NotImplementedError(
+            "line3d_tpu_torch: uncapped_fallback=False is not ported yet "
+            "(the capped matching mode)")
 
 
 class Line3D:
@@ -87,6 +75,7 @@ class Line3D:
         self.neighbors = None
         self.matches = None
         self.best = None
+        self.refined_poses = None
         self.stats = {}
 
     def add_view_segments(self, image_id: int, segments, K, R, t,
@@ -128,9 +117,10 @@ class Line3D:
         cfg = self.config
         diffu = cfg.perform_diffusion if perform_diffusion is None \
             else perform_diffusion
-        _check_config(cfg, diffu)
+        _check_config(cfg)
         if len(self._images) < 4:
             raise ValueError("not enough images (need >= 4)")
+        self.refined_poses = None     # never leak a previous run's BA poses
 
         t0 = time.perf_counter()
         self._build_scene()
@@ -182,15 +172,36 @@ class Line3D:
             best, matches, scene.collin, cams, cfg, scene.max_segments,
             verbose=self.verbose)
         t2a = time.perf_counter()
+        if diffu and graph.num_nodes:
+            # performDiffusion (line3D.cc:1255-1303): the device backend
+            # runs on the Line3D's device
+            graph = diffusion_mod.run_diffusion(graph, cfg, self.verbose,
+                                                device=self.device)
+        t2b = time.perf_counter()
+        ba_info = {}
         if graph.num_nodes:
-            labels = fh.fh_cluster(graph.edges_i, graph.edges_j,
-                                   graph.edges_w, graph.num_nodes, cfg.fh_c)
-            t2b = time.perf_counter()
+            fh_fn = fh.fh_cluster_parallel \
+                if cfg.fh_backend == "parallel" else fh.fh_cluster
+            labels = fh_fn(graph.edges_i, graph.edges_j, graph.edges_w,
+                           graph.num_nodes, cfg.fh_c)
+            t2c = time.perf_counter()
             self.result = fit_lines.process_clusters(
                 graph, labels, best, self.transform, cfg,
-                scene.max_segments, verbose=self.verbose)
+                scene.max_segments, verbose=self.verbose,
+                refine=cfg.refine_lines or cfg.bundle_adjust_cameras,
+                scene_segments=scene.segments, P_cond=cams.P, cameras=cams,
+                device=self.device, out_info=ba_info)
+            if "R_cond" in ba_info:
+                # un-condition the refined poses: X' = s (R_c X + t_c), so
+                # the equivalent original-frame pose of a conditioned
+                # camera (R', t') is R_u = R' R_c, t_u = R' t_c + t' / s
+                tr = self.transform
+                Rp, tp = ba_info["R_cond"], ba_info["t_cond"]
+                self.refined_poses = (
+                    np.einsum("vij,jk->vik", Rp, tr.R),
+                    np.einsum("vij,j->vi", Rp, tr.t) + tp * tr.scale_inv)
         else:
-            t2b = t2a
+            t2c = t2b
             self.result = []
         t3 = time.perf_counter()
 
@@ -201,11 +212,15 @@ class Line3D:
             num_lines=len(self.result),
             t_setup=t_setup, t_graph=t_graph, t_collin=t1 - tc0,
             t_match=t2 - t1, t_cluster=t3 - t2, t_total=t3 - t0,
-            t_affinity=t2a - t2, t_fh=t2b - t2a, t_fit=t3 - t2b,
+            t_affinity=t2a - t2, t_diffusion=t2b - t2a, t_fh=t2c - t2b,
+            t_fit=t3 - t2c,
             match_overflow=int(sum(vm.overflow for vm in matches)),
             m_total=[int(vm.m_total) for vm in matches],
             collinearity_overflow=coll_overflow,
             views_recollin_exact=int(n_recollin))
+        if ba_info:
+            self.stats["ba_rms_before"] = ba_info["ba_rms_before"]
+            self.stats["ba_rms_after"] = ba_info["ba_rms_after"]
         if self.verbose:
             print(f"[L3D] {len(self.result)} 3D lines found! "
                   f"(match {t2 - t1:.2f}s, cluster {t3 - t2:.2f}s)")

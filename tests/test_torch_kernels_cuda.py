@@ -5,10 +5,14 @@ Run them on the card with
     python -m pytest tests/test_torch_kernels_cuda.py -q -m cuda --noconftest
 (`--noconftest`: tests/conftest.py configures JAX, which these tests do not
 use).
-Tolerances: K1 at most 4e-4 of the valid pairs may disagree; K4 a superset
-of the dense plane with at most margin extras; scoring rtol 2e-3 / atol 2e-4,
+Tolerances: K1 and K5 at most 4e-4 of the valid pairs may disagree, K5's
+depths rtol 1e-3 / atol 1e-4 on the pairs valid in both; K4 a superset of
+the dense plane with at most margin extras; scoring rtol 2e-3 / atol 2e-4,
 where fewer than 1e-4 of the scored slots may differ by a support whose
-confidence sits at the threshold."""
+confidence sits at the threshold; K6 chain sums within peak.CHAIN_RTOL of
+the twin's.  Device diffusion: tests/test_cluster.py's rtol 2e-4 /
+atol 1e-7 against the float64 host; device refine: tests/test_refine.py's
+criteria against the host."""
 import os
 
 import numpy as np
@@ -17,11 +21,15 @@ import torch
 
 from line3d_tpu_torch import Line3D, L3DConfig
 from line3d_tpu_torch.io.writers import compare_txt
+from line3d_tpu_torch.cluster import diffusion as td, \
+    diffusion_device as tdd
+from line3d_tpu_torch.fit import refine as tr
 from line3d_tpu_torch.match import collinearity as col, \
     collinearity_cuda as k4, pairwise_cuda as k1, scoring as sc, \
     scoring_cuda as k23
+from line3d_tpu_torch.utils import peak as k6
 from line3d_tpu_torch.utils.synthetic import make_scene
-from torch_port_helpers import HOUSE10_OUTSIDE
+from torch_port_helpers import HOUSE10_DIFFUSION_OUTSIDE, HOUSE10_OUTSIDE
 
 pytestmark = pytest.mark.cuda
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -132,9 +140,22 @@ def test_wrappers_reject_bad_inputs(dev):
         k1.pair_valid_cuda(*[x.cpu() for x in a])
     with pytest.raises(TypeError):
         k1.pair_valid_cuda(a[0].double(), *a[1:])
+    with pytest.raises(ValueError):
+        k1.pair_dense_cuda(*[x.cpu() for x in a])
+    with pytest.raises(TypeError):
+        k1.pair_dense_cuda(a[0].double(), *a[1:])
+    with pytest.raises(ValueError, match="inconsistent"):
+        k1.pair_dense_cuda(a[0], a[1], a[2][:2], *a[3:])
     s = _score_inputs(dev, 4, 128, 33, 64, 1)
     with pytest.raises(ValueError, match="compiled limit"):
         k23.score(*s)
+    x = k6.chain_starts(64, device=dev)
+    with pytest.raises(ValueError):
+        k6.fma_chain_cuda(x[:, :3].contiguous(), 1)
+    with pytest.raises(TypeError):
+        k6.fma_chain_cuda(x.double(), 1)
+    with pytest.raises(ValueError):
+        k6.fma_chain_cuda(x.cpu(), 1)
 
 
 def test_house10_on_the_card_matches_golden(dev, tmp_path):
@@ -155,3 +176,113 @@ def test_house10_on_the_card_matches_golden(dev, tmp_path):
     assert rep["int_bad"] == 0, rep
     assert rep["outside"] == HOUSE10_OUTSIDE, rep
     assert rep["worst_ratio"] < 1.05, rep
+
+
+def _check_dense(got, want):
+    (dg, vg), (dw, vw) = got, want
+    n_valid = int(vw.sum())
+    assert n_valid > 20
+    assert int((vg != vw).sum()) <= 4e-4 * n_valid
+    both = vg & vw
+    for k in range(4):
+        torch.testing.assert_close(dg[k][both], dw[k][both], rtol=1e-3,
+                                   atol=1e-4)
+
+
+def _grow(x, n, dim):
+    """x padded with zeros (False) to n along dim."""
+    shape = list(x.shape)
+    shape[dim] = n - shape[dim]
+    return torch.cat([x, x.new_zeros(shape)], dim=dim)
+
+
+@pytest.mark.parametrize("S,St", [(384, 384), (200, 328)])
+def test_pair_dense_kernel_matches_plain(dev, S, St):
+    """K5 at tpu_validate's S=384 and at a ragged size (no multiple of the
+    64 x 4 block), 4 neighbors of house view 1."""
+    a = list(_house_view(dev))
+    a[0], a[1] = _grow(a[0], S, 0), _grow(a[1], S, 0)
+    a[2], a[3] = _grow(a[2], St, 1), _grow(a[3], St, 1)
+    n0, v0 = k1.LAUNCHES_DENSE, k1.LAUNCHES
+    got = k1.pair_dense(*a)
+    assert k1.LAUNCHES_DENSE == n0 + 1 and k1.LAUNCHES == v0
+    assert got[0].shape == (4, 4, S, St) and got[1].shape == (4, S, St)
+    _check_dense(got, k1.pair_dense_plain(*a))
+
+
+def test_fma_peak_kernel(dev):
+    x = k6.chain_starts(4096, device=dev)
+    n0 = k6.LAUNCHES
+    got = k6.fma_chain(x, 8)
+    assert k6.LAUNCHES == n0 + 1
+    torch.testing.assert_close(got, k6.fma_chain_plain(x, 8),
+                               rtol=k6.CHAIN_RTOL, atol=0)
+    r = k6.measure_fp32_peak(dev)
+    assert 0 < r["tflops"] < k6.H100_FP32_PEAK / 1e12
+
+
+def test_house10_diffusion_on_the_card_matches_golden(dev, tmp_path):
+    syn = make_scene(num_views=10, noise_px=0.8, seed=3)
+    l3d = Line3D(config=L3DConfig(use_collinearity=True,
+                                  diffusion_backend="host"), device=dev)
+    for v in range(syn.scene.num_views):
+        l3d.add_view_segments(
+            v, syn.scene.segments[v][syn.scene.seg_mask[v]],
+            syn.cameras.K[v], syn.cameras.R[v], syn.cameras.t[v],
+            worldpoint_ids=syn.wp_lists[v], width=640, height=480)
+    result = l3d.compute_3d_model(perform_diffusion=True)
+    out = str(tmp_path / "model.txt")
+    l3d.save_3d_lines_as_txt(result, out)
+    rep = compare_txt(out, os.path.join(HERE, "golden",
+                                        "house10_diffusion.txt"))
+    assert rep["int_bad"] == 0, rep
+    assert rep["outside"] == HOUSE10_DIFFUSION_OUTSIDE, rep
+
+
+@pytest.mark.parametrize("mode", ["reference", "true"])
+def test_device_diffusion_on_the_card_matches_host(dev, mode):
+    rng = np.random.default_rng(5)
+    n = 400
+    a, b = rng.integers(0, n, 6000), rng.integers(0, n, 6000)
+    pairs = np.unique(np.stack([a[a < b], b[a < b]], 1), axis=0)
+    w = rng.uniform(0.05, 1.0, len(pairs))
+    i = np.concatenate([pairs[:, 0], pairs[:, 1]]).astype(np.int64)
+    j = np.concatenate([pairs[:, 1], pairs[:, 0]]).astype(np.int64)
+    w = np.concatenate([w, w])
+    host = (td.diffuse_reference if mode == "reference"
+            else td.diffuse_true)(i, j, w, n)
+    fn = tdd.diffuse_reference_device if mode == "reference" \
+        else tdd.diffuse_true_device
+    got = fn(i, j, w, n, device=dev)
+    np.testing.assert_array_equal(got[0], host[0])
+    np.testing.assert_array_equal(got[1], host[1])
+    np.testing.assert_allclose(got[2], host[2], rtol=2e-4, atol=1e-7)
+    np.testing.assert_array_equal(fn(i, j, w, n, device=dev)[2], got[2])
+
+
+def test_device_refine_on_the_card_matches_host(dev):
+    rng = np.random.default_rng(3)
+    syn = make_scene(num_views=8, noise_px=0.3, seed=4)
+    mviews, msegs, P0s, d0s = [], [], [], []
+    for li, (A, B) in enumerate(syn.lines3d):
+        hits = [(v, s) for v in range(8)
+                for s in np.nonzero(syn.seg_line_id[v] == li)[0]]
+        if len(hits) < 4:
+            continue
+        mviews.append(np.array([h[0] for h in hits]))
+        msegs.append(np.array([h[1] for h in hits]))
+        d_true = (B - A) / np.linalg.norm(B - A)
+        P0s.append((A + B) / 2 + rng.normal(0, 0.03, 3))
+        d0 = d_true + rng.normal(0, 0.03, 3)
+        d0s.append(d0 / np.linalg.norm(d0))
+    data = tr.build_cluster_member_data(mviews, msegs, syn.scene.segments,
+                                        syn.cameras.P)
+    P0, d0 = np.stack(P0s), np.stack(d0s)
+    Pd, dd, rb_d, ra_d = tr.refine_lines_device(P0, d0, *data,
+                                                iterations=8, device=dev)
+    Ph, dh, rb_h, ra_h = tr.refine_lines(P0, d0, *data, iterations=8)
+    np.testing.assert_allclose(rb_d, rb_h, rtol=1e-4, atol=1e-4)
+    assert np.median(ra_d) <= np.median(ra_h) * 1.1 + 1e-3
+    assert (ra_d <= ra_h + 0.05).all()
+    assert np.abs(np.sum(dd * dh, axis=1)).min() > 0.9999
+    assert np.linalg.norm(np.cross(Pd - Ph, dh), axis=1).max() < 5e-3

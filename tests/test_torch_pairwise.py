@@ -117,3 +117,64 @@ def test_pair_valid_dispatch_cpu_uses_plain_twin():
     assert pairwise_cuda.LAUNCHES == before
     assert out.shape == (1, 128, 128) and out.dtype == __import__(
         "torch").bool
+
+
+def _house_case(v, n, S, St):
+    """Views v and n of the 6-view house, padded to S and St segments;
+    (1, 3, 384, 384) is scripts/tpu_validate.py's phase-2 case."""
+    syn = make_scene(num_views=6)
+    cams, sc = syn.cameras, syn.scene
+    f32 = lambda x: np.asarray(x, np.float32)  # noqa: E731
+
+    def cut(w, k):
+        segs = np.zeros((k, 4), np.float32)
+        mask = np.zeros(k, bool)
+        m = min(k, sc.segments.shape[1])
+        segs[:m], mask[:m] = sc.segments[w][:m], sc.seg_mask[w][:m]
+        return segs, mask
+    (ss, ms), (st, mt) = cut(v, S), cut(n, St)
+    return (ss, st, ms, mt, f32(cams.fundamental(v, n)), f32(cams.RtKinv[v]),
+            f32(cams.RtKinv[n]), f32(cams.C[v]), f32(cams.C[n]))
+
+
+@pytest.mark.parametrize("case", [(1, 3, 384, 384), (4, 1, 384, 128)])
+def test_pair_dense_plain_matches_reference(case):
+    """K5's twin against match_pair_dense and match_pair_dense_pallas
+    (interpret mode), with tpu_validate's check: gate disagreement < 1e-3,
+    depths rtol 1e-3 / atol 1e-4 on the pairs valid in both."""
+    args = _house_case(*case)
+    ja = [jnp.asarray(a) for a in args]
+    ta = [T(a) for a in args]
+    depths, valid = pairwise_cuda.pair_dense(
+        ta[0], ta[2], ta[1][None], ta[3][None], ta[4][None], ta[5],
+        ta[6][None], ta[7], ta[8][None])
+    assert depths.shape == (4, 1) + valid.shape[1:] and \
+        depths.dtype == __import__("torch").float32
+    depths, valid = N(depths)[:, 0], N(valid)[0]
+    for ref in (jp.match_pair_dense(*ja),
+                jpp.match_pair_dense_pallas(*ja, block_s=128, block_t=128,
+                                            interpret=True)):
+        d_r, v_r = [N(d) for d in ref[0]], N(ref[1])
+        both = valid & v_r
+        assert both.sum() > 20
+        assert (valid != v_r).mean() < 1e-3
+        for k in range(4):
+            np.testing.assert_allclose(depths[k][both], d_r[k][both],
+                                       rtol=1e-3, atol=1e-4)
+
+
+def test_pair_dense_dispatch_cpu_uses_plain_twin():
+    """CPU tensors take the twin (K1's planes beside the depths), and the
+    valid planes equal pair_valid's."""
+    a = [T(x) for x in facade_pair(0, 1, 128, 256)]
+    nb = (a[1][None], a[3][None], a[4][None])
+    before = pairwise_cuda.LAUNCHES_DENSE
+    depths, valid = pairwise_cuda.pair_dense(a[0], a[2], *nb, a[5],
+                                             a[6][None], a[7], a[8][None])
+    assert pairwise_cuda.LAUNCHES_DENSE == before
+    want = pairwise_cuda.pair_valid(a[0], a[2], *nb, a[5], a[6][None],
+                                    a[7], a[8][None])
+    np.testing.assert_array_equal(N(valid), N(want))
+    d_t, _ = tp.match_pair_dense(*a)
+    for k in range(4):
+        np.testing.assert_array_equal(N(depths)[k, 0], N(d_t[k]))
