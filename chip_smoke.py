@@ -11,12 +11,16 @@ exits non-zero):
                checkout; print the seconds.
   3. kernels   each kernel against its plain PyTorch twin on the card, on
                inputs cut from view 0 of the 25-view facade scene: K1 (pair
-               valid plane), K4 (collinearity keep plane), and the scoring
-               kernel at M=256 and M=1024; errors and CUDA-event times.
+               valid plane, with the pairs that pass its cheap gates and
+               the warps holding any), K4 (collinearity keep plane), and
+               the scoring kernel at M=256 and M=1024 (with the dense
+               walk's pair tests and the spatial gate's survivors); errors,
+               CUDA-event times and each kernel's bound.
   4. validate  K5 (dense depth planes) through `pair_dense`, the port's
                counterpart of scripts/tpu_validate.py's phase 2: the house
                pair at S=384 and facade view 0 x 10 neighbors, held against
-               the plain twin; CUDA-event times.
+               the plain twin, and K1's plane held to K5's valid plane;
+               CUDA-event times.
   5. peak      K6: the card's float32 FMA rate (`measure_fp32_peak`, the
                marginal-rate protocol of bench.py), and the chain held
                against its twin.
@@ -27,7 +31,9 @@ exits non-zero):
                its weights held to the host's on the same graph.
   8. facade    the 25-view facade scene, exact matching: one cold run and
                three warm runs, with the kernels' launch counts from one
-               warm run; then views 0 and 12: K1's planes against its twin,
+               warm run, and one run under torch.profiler (the card's busy
+               time and idle share); then views 0 and 12: K1's planes
+               against its twin,
                and the per-view step re-run on the CPU with the plain twins
                on the card's K1 planes, its tables, scores and best matches
                compared with the card's.
@@ -77,6 +83,26 @@ HOUSE10_DIFFUSION_OUTSIDE = [(10, "-0.173167", "-0.170758"),
                              (10, "0.00768377", "0.00892661"),
                              (10, "1.09097", "1.08816"),
                              (11, "0.0023077", "0.00230667")]
+# K1's disagreements with its twin at facade view 0 against its first
+# neighbour (N=1) and all ten (N=10) before K1 was redesigned to
+# triangulate only the survivors of its cheap gates: the redesign keeps
+# each pair's arithmetic, so the counts must not move
+K1_TWIN_DISAGREE = {1: 1, 10: 8}
+# f32 operations per pair, counted from the kernel sources (each add,
+# multiply, compare, divide, square root, exp or acos counts one): K1's
+# cheap gates (4 intersections, 2 overlap ratios, the gate, the masks) and
+# its triangulation gates (4 ray normalizations, 4 two-ray depths); K5 does
+# both for every pair; K4's gate; the scoring kernel per staged slot, per
+# spatial-gate test and per pair that passes the spatial gate
+K1_CHEAP_OPS, K1_TRI_OPS, K4_OPS = 254, 235, 63
+SCORE_SLOT_OPS, SCORE_GATE_OPS, SCORE_PAIR_OPS = 48, 8, 73
+# the card's float32 rate outside the tensor cores and its memory rate
+# (NVIDIA H100 SXM data sheet), the denominators of every bound.  67e12
+# counts a fused multiply-add as two operations; the kernels are built with
+# -fmad=false and issue one add or multiply per instruction (a divide, root,
+# exp or acos many), so an operations bound is a floor about 2x below what
+# they can reach.
+PEAK_F32, PEAK_BYTES = 67e12, 3.35e12
 # K5 depths against the twin on pairs valid in both (tpu_validate.py)
 DEPTH_RTOL, DEPTH_ATOL = 1e-3, 1e-4
 # device diffusion against the float64 host (tests/test_cluster.py)
@@ -134,6 +160,37 @@ def cuda_ms(fn, reps: int) -> float:
     return t0.elapsed_time(t1) / reps
 
 
+def bound_ms(ops: float, nbytes: float):
+    """(least milliseconds, what binds it): the larger of the operations
+    over the float32 rate and the bytes over the memory rate."""
+    t_ops, t_bytes = ops / PEAK_F32 * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def score_gate_counts(cam, depths, valid, N, spatial_k, rows=32):
+    """(sum over rows of need^2, the (m, m2) pairs passing the scoring
+    kernel's spatial gate with both slots valid, m2 in a camera and
+    m2 != m): the pair tests of a dense walk and of the windowed one."""
+    import torch
+    from line3d_tpu_torch.match import scoring as sc
+    need = sc.row_need(valid).long()
+    dense = int((need * need).sum())
+    sup = valid & (cam >= 0) & (cam < N)
+    n_pass = 0
+    for r0 in range(0, cam.shape[0], rows):
+        d1 = depths[r0:r0 + rows, :, 0]
+        d2 = depths[r0:r0 + rows, :, 1]
+        ok = ((d1[:, :, None] - d1[:, None, :]).abs()
+              <= spatial_k * d1[:, :, None]) & \
+            ((d2[:, :, None] - d2[:, None, :]).abs()
+             <= spatial_k * d2[:, :, None])
+        ok &= valid[r0:r0 + rows, :, None] & sup[r0:r0 + rows, None, :]
+        ok &= ~torch.eye(cam.shape[1], dtype=torch.bool,
+                         device=cam.device)[None]
+        n_pass += int(ok.sum())
+    return dense, n_pass
+
+
 def facade_inputs(device):
     """The facade scene with its tensors on `device`, conditioned cameras
     and visual neighbors — the state the pipeline matches on."""
@@ -171,7 +228,7 @@ def phase_build():
     t_host = load.build(force=True)
     with open(cuda.LOG_PATH) as f:
         ptxas = [ln.strip() for ln in f if "registers" in ln
-                 or "Compiling entry" in ln]
+                 or "Compiling entry" in ln or "spill" in ln]
     log(f"[build] nvcc {t_cuda:.2f} s (sm_90a, -fmad=false), "
         f"g++ host library {t_host:.2f} s")
     for ln in ptxas:
@@ -181,8 +238,8 @@ def phase_build():
 def phase_kernels():
     import torch
     from line3d_tpu_torch.match import collinearity as col, engine, \
-        collinearity_cuda as k4, pairwise_cuda as k1, scoring as sc, \
-        scoring_cuda as k23
+        collinearity_cuda as k4, pairwise, pairwise_cuda as k1, \
+        scoring as sc, scoring_cuda as k23
     dev = torch.device("cuda")
     cfg, scene, cams, nbrs = facade_inputs(dev)
     ctx = engine.ViewContext(scene, cams, cfg)
@@ -201,19 +258,34 @@ def phase_kernels():
                 cfg.min_overlap_upper)
     for n in (1, N):
         a = k1_args(n)
-        got, want = k1.pair_valid_cuda(*a), k1.pair_valid_plain(*a)
+        stats = torch.zeros(2, dtype=torch.int64, device=dev)
+        got = k1.pair_valid_cuda(*a, stats=stats)
+        want = k1.pair_valid_plain(*a)
         torch.cuda.synchronize()
         bad, n_valid = int((got != want).sum()), int(want.sum())
+        n_surv, n_warps = int(stats[0]), int(stats[1])
         log(f"[kernels] K1 pair_valid S={S} St={S} N={n}: {n_valid} valid "
-            f"pairs of {got.numel()}, {bad} disagree (bound "
-            f"{PAIR_DISAGREE_MAX:g} of the valid pairs)")
+            f"pairs of {got.numel()}, {bad} disagree with the twin (bound "
+            f"{PAIR_DISAGREE_MAX:g} of the valid pairs; before the redesign "
+            f"{K1_TWIN_DISAGREE[n]}); cheap-gate survivors {n_surv} "
+            f"({n_surv / got.numel():.4f} of the pairs), warps holding any "
+            f"{n_warps} of {got.numel() // 32}")
         require(bad <= PAIR_DISAGREE_MAX * n_valid,
                 "K1 disagrees with its plain twin")
+        require(bad == K1_TWIN_DISAGREE[n],
+                "K1's disagreements with its twin moved")
+        require(n_valid <= n_surv, "K1 has fewer survivors than valid pairs")
     ms = cuda_ms(lambda: k1.pair_valid_cuda(*a), 20)
     plain_ms = cuda_ms(lambda: k1.pair_valid_plain(*a), 3)
-    log(f"[kernels] K1 N={N}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+    ops = got.numel() * K1_CHEAP_OPS + n_surv * K1_TRI_OPS
+    nbytes = sum(x.numel() * x.element_size() for x in a[:9]) + got.numel()
+    b_ms, b_by = bound_ms(ops, nbytes)
+    log(f"[kernels] K1 N={N}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms; "
+        f"bound {b_ms:.4f} ms by {b_by} ({ops:.3e} ops, {nbytes} bytes)")
     out["pair_valid"] = dict(max_abs_err=float(bad > 0), disagree=bad,
-                             ms=ms, plain_ms=plain_ms)
+                             ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                             bound_by=b_by, survivors=n_surv,
+                             warps_with_survivor=n_warps)
 
     # K4: one view's keep plane
     sig2 = float(np.float32(cfg.collinearity_sigma ** 2))
@@ -232,9 +304,13 @@ def phase_kernels():
             "K4 disagrees with its plain twin")
     ms = cuda_ms(lambda: k4.collin_keep_cuda(segs0, mask0, thr), 20)
     plain_ms = cuda_ms(lambda: k4.collin_keep_plain(segs0, mask0, thr), 5)
-    log(f"[kernels] K4: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+    b_ms, b_by = bound_ms(got.numel() * K4_OPS,
+                          S * 17 + got.numel())
+    log(f"[kernels] K4: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms; bound "
+        f"{b_ms:.4f} ms by {b_by}")
     out["collin_keep"] = dict(max_abs_err=float(bad > 0), disagree=bad,
-                              ms=ms, plain_ms=plain_ms)
+                              ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                              bound_by=b_by)
 
     # scoring: view 0's exact match table, cut or padded to M slots
     o = engine.match_view(ctx, v, nb)
@@ -251,21 +327,25 @@ def phase_kernels():
             return torch.cat([x, pad], dim=1)
         cam, tgt = cut(o["cam"], -1), cut(o["tgt"], -1)
         depths, valid = cut(o["depths"], 0), cut(o["valid"], False)
+        tcoords = pairwise.gather_target_coords(segs_nb, cam, tgt)
         a = (segs0, ctx.RtKinv32[v], ctx.C32[v], cam, tgt, depths, valid,
              P_nb, segs_nb, float(np.float32(cfg.sigma_p)),
              float(np.float32(cfg.sigma_a)), spk, cfg.support_threshold)
-        prep = sc.kernel_inputs(*a)
-        got = k23.score_prepared(*prep)
-        want = k23.score_plain(*a)
+        got = k23.score_cuda(*a, tcoords=tcoords)
+        want = k23.score_plain(*a, tcoords=tcoords)
         err = (got - want).abs()
         outside = err > SCORE_ATOL + SCORE_RTOL * want.abs()
         n_bad, n_scored = int(outside.sum()), int((want > 0).sum())
-        need = prep[4]
-        log(f"[kernels] score M={M}: {int(valid.sum())} valid slots, need "
-            f"max {int(need.max())} (rows with need % 128 != 0: "
-            f"{int(((need % 128) != 0).sum())}), {n_scored} scored, max "
+        need = sc.row_need(valid)
+        dense, n_pass = score_gate_counts(cam, depths, valid, N, spk)
+        n_valid = int(valid.sum())
+        log(f"[kernels] score M={M}: {n_valid} valid slots, need max "
+            f"{int(need.max())} (rows with need % 256 != 0: "
+            f"{int(((need % 256) != 0).sum())}), {n_scored} scored, max "
             f"abs err {float(err.max()):.3e}, {n_bad} outside rtol "
-            f"{SCORE_RTOL} / atol {SCORE_ATOL}")
+            f"{SCORE_RTOL} / atol {SCORE_ATOL}; sum need^2 {dense} pair "
+            f"tests, {n_pass} pass the spatial gate "
+            f"({n_pass / max(dense, 1):.5f})")
         for s_, m_ in outside.nonzero().tolist()[:10]:
             log(f"[kernels]   slot ({s_}, {m_}): kernel "
                 f"{float(got[s_, m_]):.6f}, plain {float(want[s_, m_]):.6f}")
@@ -276,13 +356,30 @@ def phase_kernels():
         # gates, must stay rare
         require(n_bad <= SCORE_FLIP_MAX * max(n_scored, 1),
                 f"scoring kernel disagrees at M={M}")
-        ms = cuda_ms(lambda: k23.score_prepared(*prep), 10)
-        prep_ms = cuda_ms(lambda: sc.kernel_inputs(*a), 10)
-        plain_ms = cuda_ms(lambda: k23.score_plain(*a), 2)
-        log(f"[kernels] score M={M}: kernel {ms:.3f} ms (+ prep "
-            f"{prep_ms:.3f} ms), plain {plain_ms:.3f} ms")
+        # the kernel's time includes all of its staging: it reads the
+        # table as the engine holds it (the engine gathers tcoords once
+        # for the depth recompute and the scoring)
+        ms = cuda_ms(lambda: k23.score_cuda(*a, tcoords=tcoords), 10)
+        plain_ms = cuda_ms(lambda: k23.score_plain(*a, tcoords=tcoords), 2)
+        # history: the host-side staging of the Pallas layout (the [S, 16,
+        # M] planes and the per-row tables) that the kernel took before it
+        # read the table itself
+        old_prep_ms = cuda_ms(lambda: (
+            sc.slot_terms(segs0, ctx.RtKinv32[v], cam, depths, valid,
+                          tcoords),
+            sc.kernel_inputs(segs0, ctx.RtKinv32[v], ctx.C32[v], valid,
+                             P_nb, *a[9:])), 10)
+        nbytes = S * M * (1 + 4) + n_valid * (4 + 8 + 16)
+        ops = (n_valid * SCORE_SLOT_OPS + n_pass * SCORE_PAIR_OPS
+               + n_pass * SCORE_GATE_OPS)
+        b_ms, b_by = bound_ms(ops, nbytes)
+        log(f"[kernels] score M={M}: kernel {ms:.3f} ms with its staging, "
+            f"plain {plain_ms:.3f} ms; bound {b_ms:.4f} ms by {b_by}; "
+            f"history: the Pallas-layout host prep {old_prep_ms:.3f} ms")
         out["score"][M] = dict(max_abs_err=float(err.max()), outside=n_bad,
-                               ms=ms, prep_ms=prep_ms, plain_ms=plain_ms)
+                               ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                               bound_by=b_by, old_prep_ms=old_prep_ms,
+                               pair_tests_dense=dense, gate_pass=n_pass)
     return out
 
 
@@ -370,14 +467,33 @@ def phase_validate():
         res[name] = dict(max_abs_err=err, gate_disagree=bad_gate,
                          depth_outside=n_out, k5_off_f64=k_off,
                          twin_off_f64=t_off)
+    # K1 (cheap gates, then the survivors' triangulation, sign carrier
+    # num * denom) against K5's valid plane (every pair triangulated, sign
+    # from num * (1 / denom)) on the same facade inputs
+    k1_plane = k5.pair_valid_cuda(*facade)
+    vg = outs[1][1]
+    differ = (k1_plane != vg).nonzero().tolist()
+    log(f"[validate] K1 vs K5's valid plane, facade view 0 N=10: "
+        f"{len(differ)} of {vg.numel()} pairs differ")
+    for n_, s_, t_ in differ[:20]:
+        log(f"[validate]   pair ({n_}, {s_}, {t_}): K1 "
+            f"{bool(k1_plane[n_, s_, t_])}, K5 {bool(vg[n_, s_, t_])}, K5 "
+            f"depths {outs[1][0][:, n_, s_, t_].tolist()}")
+    require(not differ, "K1's plane differs from K5's valid plane")
     ms = cuda_ms(lambda: k5.pair_dense_cuda(*facade), 10)
     plain_ms = cuda_ms(lambda: k5.pair_dense_plain(*facade), 2)
+    pairs = vg.numel()
+    b_ms, b_by = bound_ms(pairs * (K1_CHEAP_OPS + K1_TRI_OPS),
+                          sum(x.numel() * x.element_size() for x in facade)
+                          + pairs * 17)
     log(f"[validate] K5 facade N=10: kernel {ms:.3f} ms, plain "
-        f"{plain_ms:.3f} ms; launches in the validation path: {launches}")
+        f"{plain_ms:.3f} ms; bound {b_ms:.4f} ms by {b_by}; launches in "
+        f"the validation path: {launches}")
     require(launches == 2, "K5 was not launched on the validation path")
     return dict(launches=launches,
                 max_abs_err=max(r["max_abs_err"] for r in res.values()),
-                ms=ms, plain_ms=plain_ms, cases=res)
+                ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                cases=res)
 
 
 def _quantiles(x) -> str:
@@ -411,11 +527,15 @@ def phase_peak(smi):
     require(rel <= k6.CHAIN_RTOL, "K6 disagrees with its twin")
     ms = cuda_ms(lambda: k6.fma_chain_cuda(x, trips), 20)
     plain_ms = cuda_ms(lambda: k6.fma_chain_plain(x, trips), 3)
+    # one fused multiply-add is two operations
+    b_ms, b_by = bound_ms(2 * x.numel() * k6.UNROLL * trips,
+                          x.numel() * 4 + x.shape[0] * 4)
     log(f"[peak] K6 at {k6.UNROLL * trips} steps: kernel {ms:.3f} ms, "
-        f"plain {plain_ms:.3f} ms")
+        f"plain {plain_ms:.3f} ms; bound {b_ms:.4f} ms by {b_by}")
     torch.cuda.synchronize()
     return dict(launches=launches, max_abs_err=err, ms=ms,
-                plain_ms=plain_ms, tflops=r["tflops"])
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                tflops=r["tflops"])
 
 
 def _hold_diffusion(calls, mode, where):
@@ -490,11 +610,13 @@ def _counted(run, tag):
     the counts just after)."""
     from line3d_tpu_torch.match import pairwise_cuda as k1, \
         collinearity_cuda as k4, scoring_cuda as k23
-    k1.LAUNCHES = k4.LAUNCHES = 0
+    from line3d_tpu_torch.utils import peak as k6
+    k1.LAUNCHES = k1.LAUNCHES_DENSE = k4.LAUNCHES = k6.LAUNCHES = 0
     k23.LAUNCHES = k23.LAUNCHES_WIDE = 0
     out = run()
     counts = dict(pair_valid=k1.LAUNCHES, collin_keep=k4.LAUNCHES,
-                  score=k23.LAUNCHES, score_wide=k23.LAUNCHES_WIDE)
+                  score=k23.LAUNCHES, score_wide=k23.LAUNCHES_WIDE,
+                  pair_dense=k1.LAUNCHES_DENSE, fma_peak=k6.LAUNCHES)
     require(counts["pair_valid"] > 0 and counts["collin_keep"] > 0
             and counts["score_wide"] > 0,
             f"{tag}: a kernel of the path was not launched")
@@ -502,15 +624,42 @@ def _counted(run, tag):
     return out, counts
 
 
-def _facade_runs(cfg, scene, cams, n_warm, tag):
+def _profile(run, tag):
+    """One more run under torch.profiler: the card's busy time (the summed
+    durations of its kernels, copies and fills), the run's host seconds,
+    the card's idle share, and the device ops that took the most time."""
+    from collections import defaultdict
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, t = run()
+    per_op = defaultdict(float)
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            per_op[e.name] += e.time_range.elapsed_us() / 1e3
+    busy = sum(per_op.values())
+    if not per_op:
+        log(f"[{tag}] profiled run {t:.3f} s: the profiler saw no device "
+            "events")
+        return
+    top = sorted(per_op.items(), key=lambda kv: -kv[1])[:8]
+    log(f"[{tag}] profiled run {t:.3f} s (host clock, profiler on): card "
+        f"busy {busy:.1f} ms, idle share {1 - busy / (t * 1e3):.3f}; most "
+        f"device time: " + "; ".join(f"{n[:60]} {ms:.1f} ms"
+                                     for n, ms in top))
+
+
+def _facade_runs(cfg, scene, cams, n_warm, tag, profile=False):
     """One cold and n_warm warm runs of the facade through Line3D on the
-    card; the kernels' launch counts of warm run 1.  Returns (l3d of the
-    last run, warm seconds, counts)."""
+    card; the kernels' launch counts of warm run 1; with profile, one more
+    run under torch.profiler.  Returns (l3d of the last warm run, warm
+    seconds, counts)."""
     import torch
     from line3d_tpu_torch import Line3D
 
     def run():
-        l3d = feed(Line3D(config=cfg, device="cuda"), scene, cams)
+        l3d = feed(Line3D(config=cfg), scene, cams)   # the card by default
         t0 = time.perf_counter()
         l3d.compute_3d_model()
         torch.cuda.synchronize()
@@ -535,6 +684,8 @@ def _facade_runs(cfg, scene, cams, n_warm, tag):
     st = l3d.stats
     require(st["match_overflow"] == 0, f"{tag}: overflow is not 0")
     require(st["num_lines"] > 0, f"{tag}: no lines")
+    if profile:
+        _profile(run, tag)
     return l3d, warm, counts
 
 
@@ -672,7 +823,8 @@ def phase_facade(card):
     cfg = L3DConfig()
     scene, cams = make_facade_scene(num_views=25, config=cfg)
     V = scene.num_views
-    l3d, warm, counts = _facade_runs(cfg, scene, cams, 3, "facade")
+    l3d, warm, counts = _facade_runs(cfg, scene, cams, 3, "facade",
+                                     profile=True)
     st = l3d.stats
     mt, mc = np.unique(st["m_total"], return_counts=True)
     log(f"[facade] {st['num_lines']} lines, {st['num_best']} best matches, "
@@ -821,37 +973,50 @@ def main() -> int:
     log(f"[summary] phase seconds {seconds}; facade exact best "
         f"{fa['best']:.3f} s, with diffusion + refine best {fd['best']:.3f} s")
 
+    # `launches` counts the path each kernel serves (the facade's warm run
+    # for K1, K4 and the scoring kernel, the validation and peak phases
+    # for K5 and K6); `launches_per_facade_run` is the warm facade run's
+    # count for every kernel.  No single PyTorch call computes any of these
+    # functions, so `library_ms` is null throughout.
     cnt = fa["counts"]
     kernels = [
         dict(name="pair_valid (K1)", route="cuda",
              source="line3d_tpu_torch/csrc/pair_valid.cu",
              replaces="line3d_tpu/match/pairwise_pallas.py:216",
-             launches=cnt["pair_valid"], **k["pair_valid"]),
+             launches=cnt["pair_valid"], library_ms=None,
+             launches_per_facade_run=cnt["pair_valid"], **k["pair_valid"]),
         dict(name="collin_keep (K4)", route="cuda",
              source="line3d_tpu_torch/csrc/collin_keep.cu",
              replaces="line3d_tpu/match/collinearity_pallas.py:35",
-             launches=cnt["collin_keep"], **k["collin_keep"]),
+             launches=cnt["collin_keep"], library_ms=None,
+             launches_per_facade_run=cnt["collin_keep"],
+             **k["collin_keep"]),
         dict(name="score (K2/K3)", route="cuda",
              source="line3d_tpu_torch/csrc/scoring.cu",
              replaces="line3d_tpu/match/scoring_pallas.py:239",
              also_replaces="line3d_tpu/match/scoring_pallas.py:212",
              launches=cnt["score"], launches_m_gt_256=cnt["score_wide"],
+             launches_per_facade_run=cnt["score"], library_ms=None,
              max_abs_err=max(r["max_abs_err"]
                              for r in k["score"].values()),
-             ms=k["score"][1024]["ms"],
-             plain_ms=k["score"][1024]["plain_ms"],
+             **{key: k["score"][1024][key] for key in
+                ("ms", "plain_ms", "bound_ms", "bound_by", "old_prep_ms")},
              at_m256=k["score"][256]),
         dict(name="pair_dense (K5)", route="cuda",
              source="line3d_tpu_torch/csrc/pair_valid.cu",
              replaces="line3d_tpu/match/pairwise_pallas.py:203",
              path="validate", launches=k5["launches"],
-             max_abs_err=k5["max_abs_err"], ms=k5["ms"],
-             plain_ms=k5["plain_ms"]),
+             launches_per_facade_run=cnt["pair_dense"], library_ms=None,
+             **{key: k5[key] for key in ("max_abs_err", "ms", "plain_ms",
+                                         "bound_ms", "bound_by")}),
         dict(name="fma_peak (K6)", route="cuda",
              source="line3d_tpu_torch/csrc/fma_peak.cu",
              replaces="bench.py:398", path="peak",
-             launches=k6["launches"], max_abs_err=k6["max_abs_err"],
-             ms=k6["ms"], plain_ms=k6["plain_ms"], tflops=k6["tflops"]),
+             launches=k6["launches"],
+             launches_per_facade_run=cnt["fma_peak"], library_ms=None,
+             **{key: k6[key] for key in ("max_abs_err", "ms", "plain_ms",
+                                         "bound_ms", "bound_by",
+                                         "tflops")}),
     ]
     log(json.dumps({"kernels": kernels}))
     print(smi, flush=True)

@@ -150,8 +150,8 @@ def resolve_backend(value: str, device) -> str:
     return value
 
 
-def run_diffusion(graph, config: L3DConfig, verbose: bool = False,
-                  device="cpu"):
+def run_diffusion(graph, config: L3DConfig, verbose: bool = False, *,
+                  device):
     """Diffuse a cluster.AffinityGraph in place; returns it with the new
     edge list.  The device backend runs on `device` (float32 torch)."""
     if resolve_backend(config.diffusion_backend, device) == "device":

@@ -193,7 +193,7 @@ def _diffuse(edges_i, edges_j, edges_w, num_nodes, iterations, eps, device,
 
 def diffuse_reference_device(edges_i, edges_j, edges_w, num_nodes,
                              iterations: int = 10, eps: float = 1e-12,
-                             device="cpu"):
+                             *, device):
     """Reference-mode RDD in float32 on `device`; returns the (i, j)-sorted
     edge list with min-symmetrized weights (float64 numpy)."""
     return _diffuse(edges_i, edges_j, edges_w, num_nodes, iterations, eps,
@@ -202,7 +202,7 @@ def diffuse_reference_device(edges_i, edges_j, edges_w, num_nodes,
 
 def diffuse_true_device(edges_i, edges_j, edges_w, num_nodes,
                         iterations: int = 10, eps: float = 1e-12,
-                        device="cpu"):
+                        *, device):
     """"True"-mode RDD in float32 on `device` (the device twin of
     diffusion.diffuse_true); same contract as diffuse_reference_device."""
     return _diffuse(edges_i, edges_j, edges_w, num_nodes, iterations, eps,

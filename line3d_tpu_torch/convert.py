@@ -31,7 +31,7 @@ def cameras_from_reference(cameras) -> CameraSet:
         uncertainty_upper_px=cameras.uncertainty_upper_px)
 
 
-def scene_from_reference(scene, cameras, device="cpu"):
+def scene_from_reference(scene, cameras, device="cuda"):
     """(Scene, CameraSet) of the port from the reference's, with the scene's
     tensors on `device`."""
     cams = cameras_from_reference(cameras)

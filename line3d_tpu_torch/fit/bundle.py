@@ -201,7 +201,7 @@ def _bundle(P0, d, K, R0, t0, vidx, p1, p2, mask, iterations: int,
 
 def bundle_adjust(P0, d, K, R, t, vidx, p1, p2, mask, iterations: int = 5,
                   huber_delta: float = 2.0, damping: float = 1e-4,
-                  device="cpu"):
+                  *, device):
     """Jointly refine [C] lines and [V] camera poses (see module docs), in
     float32 on `device`.
 

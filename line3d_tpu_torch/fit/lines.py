@@ -47,7 +47,7 @@ def process_clusters(graph: AffinityGraph, labels: np.ndarray,
                      verbose: bool = False, refine: bool = False,
                      scene_segments: np.ndarray | None = None,
                      P_cond: np.ndarray | None = None, cameras=None,
-                     device="cpu", out_info: dict | None = None) -> list:
+                     *, device, out_info: dict | None = None) -> list:
     """Turn cluster labels into FinalLine3D results.
 
     The batched formulation of line3d_tpu (grouped numpy, one batched 3x3

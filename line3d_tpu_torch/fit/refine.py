@@ -218,7 +218,7 @@ def _refine_lines_t(P0, d, Pm, p1, p2, mask, iterations: int,
 
 def refine_lines_device(P0, d, Pm, p1, p2, mask, iterations: int = 5,
                         huber_delta: float = 2.0, damping: float = 1e-6,
-                        device="cpu"):
+                        *, device):
     """refine_lines in float32 torch on `device`, with exact JVP Jacobians.
 
     Same signature and semantics as refine_lines (numpy in, float64 numpy

@@ -40,16 +40,28 @@ def pair_valid_plain(segs_src, mask_src, segs_nb, mask_nb, F_nb,
 def pair_valid_cuda(segs_src, mask_src, segs_nb, mask_nb, F_nb,
                     RtKinv_src, RtKinv_nb, C_src, C_nb,
                     min_overlap_lower=pairwise.MIN_OVERLAP_LOWER,
-                    min_overlap_upper=pairwise.MIN_OVERLAP_UPPER):
-    """[N, Ss, St] bool valid planes from the CUDA kernel (one launch)."""
+                    min_overlap_upper=pairwise.MIN_OVERLAP_UPPER,
+                    stats=None):
+    """[N, Ss, St] bool valid planes from the CUDA kernel (one launch).
+
+    `stats`, an int64 [2] tensor on the same device, if given, gains the
+    launch's pairs that pass the cheap gates (the ones the kernel
+    triangulates) and its warps of 32 pairs that hold any of them."""
     global LAUNCHES
     args, params = _launch_args("pair_valid", segs_src, mask_src, segs_nb,
                                 mask_nb, F_nb, RtKinv_src, RtKinv_nb, C_src,
                                 C_nb, min_overlap_lower, min_overlap_upper)
+    if stats is not None:
+        cuda.require_cuda("pair_valid", segs_src, stats,
+                          dtypes=[torch.float32, torch.int64])
+        if stats.shape != (2,):
+            raise ValueError("pair_valid: stats must have shape [2]")
     N, St = mask_nb.shape
     out = torch.empty((N, segs_src.shape[0], St), dtype=torch.bool,
                       device=segs_src.device)
     rc = cuda.lib().l3d_pair_valid(*args, out.data_ptr(),
+                                   None if stats is None
+                                   else stats.data_ptr(),
                                    cuda.stream_of(segs_src))
     cuda.check(rc, "l3d_pair_valid")
     LAUNCHES += 1
@@ -73,14 +85,17 @@ def _launch_args(name, segs_src, mask_src, segs_nb, mask_nb, F_nb,
                       F_nb, RtKinv_src, RtKinv_nb, C_src, C_nb,
                       dtypes=[f32, torch.bool, f32, torch.bool] + [f32] * 5)
     dev = segs_src.device
-    # per-neighbor parameter rows (pairwise_pallas.py:303-307 layout)
-    thr = torch.tensor([min_overlap_lower, min_overlap_upper], dtype=f32,
-                       device=dev)
+    # per-neighbor parameter rows (pairwise_pallas.py:303-307 layout); the
+    # thresholds are filled on the device, so no host copy waits on the
+    # stream
     params = torch.cat([F_nb.reshape(N, 9),
                         RtKinv_src.reshape(1, 9).expand(N, 9),
                         RtKinv_nb.reshape(N, 9),
                         C_src.reshape(1, 3).expand(N, 3), C_nb,
-                        thr.expand(N, 2)], dim=1).contiguous()
+                        torch.full((N, 1), min_overlap_lower, dtype=f32,
+                                   device=dev),
+                        torch.full((N, 1), min_overlap_upper, dtype=f32,
+                                   device=dev)], dim=1).contiguous()
     args = (segs_src.data_ptr(), mask_src.data_ptr(), segs_nb.data_ptr(),
             mask_nb.data_ptr(), params.data_ptr(), N, Ss, St)
     return args, params

@@ -16,23 +16,20 @@ m = (src segment s, neighbor cam c, tgt segment j) with triangulated depths
 
 `score_matches` is the plain twin of kernels K2/K3: the [M x M] support
 planes per source segment evaluated densely, over chunks of rows.
-`kernel_inputs` is the kernel-side prep of `scoring_pallas.py:390-448`.
+`slot_terms` and `kernel_inputs` are the plain form of what the CUDA kernel
+derives from the match table while it stages a row (the Pallas kernel's
+prep, `scoring_pallas.py:390-448`); the kernel itself takes the table as
+the engine holds it.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..core import geometry as g
 from .pairwise import gather_target_coords
 
 EPS = g.EPS
-
-# pm plane slots (scoring_pallas.py:60-64)
-_D1, _D2, _CAM, _VALID = 0, 1, 2, 3
-_TLX, _TLY, _TLZ, _ITDEN = 4, 5, 6, 7
-_Q1X, _Q1Y, _Q2X, _Q2Y = 8, 9, 10, 11
-_DIRX, _DIRY, _DIRZ = 12, 13, 14
-_PM = 16
 
 
 def row_need(valid):
@@ -198,44 +195,58 @@ def score_matches(segs_src, mask_src, RtKinv_src, C_src,
     return conf
 
 
-def kernel_inputs(segs_src, RtKinv_src, C_src, cam, tgt, depths, valid,
-                  P_nb, segs_nb, sigma_p, sigma_a, spatial_k,
-                  support_threshold=0.5, tcoords=None):
-    """Inputs of the scoring kernel (scoring_pallas.py:390-448).
+def kernel_params(sigma_p, sigma_a, spatial_k, support_threshold=0.5):
+    """The kernel's four float32 scalars (1/2sp^2, 1/2sa^2, spatial_k,
+    support_threshold), rounded as float32 arithmetic rounds them."""
+    f32 = np.float32
+    sp, sa = f32(sigma_p), f32(sigma_a)
+    return (f32(1.0) / (f32(2.0) * sp * sp), f32(1.0) / (f32(2.0) * sa * sa),
+            f32(spatial_k), f32(support_threshold))
 
-    Returns (pm [S, 16, M] f32 per-match planes in the _D1.._DIRZ slot
-    order, btab [S, 6N] f32 (P_n[:, :3] @ ray for both endpoint rays,
-    layout n*6 + k), atab [3N] f32 (P_n @ [C_src; 1]), params [4] f32
-    (1/2sp^2, 1/2sa^2, spatial_k, support_threshold), need [S] int32).
-    """
+
+def slot_terms(segs_src, RtKinv_src, cam, depths, valid, tcoords):
+    """Per-slot terms the scoring kernel derives while it stages a slot, as
+    the Pallas kernel's [S, 16, M] input planes (scoring_pallas.py:60-64,
+    prep :390-448), in that kernel's plane order: d1, d2, cam, valid, the
+    target line (tlx, tly, tlz) and its inverse norm, the target endpoints
+    (q1x, q1y, q2x, q2y), the unit hypothesis direction, and a zero
+    plane."""
     S, M = cam.shape
     f32 = torch.float32
-    dev = cam.device
-
     p1, p2 = g.seg_endpoints(segs_src)
     ray1 = g.ray_dir(RtKinv_src, p1)
     ray2 = g.ray_dir(RtKinv_src, p2)
-
-    if tcoords is None:
-        tcoords = gather_target_coords(segs_nb, cam, tgt)
     q1x, q1y = tcoords[..., 0], tcoords[..., 1]
     q2x, q2y = tcoords[..., 2], tcoords[..., 3]
     tlx = q1y - q2y
     tly = q2x - q1x
     tlz = q1x * q2y - q1y * q2x
     itden = 1.0 / g.sqrt(tlx * tlx + tly * tly).clamp_min(EPS)
-
     d1 = depths[..., 0]
     d2 = depths[..., 1]
     dirn = _unit_dirs(d1, d2, ray1, ray2).unbind(-1)
-
     planes = [d1, d2, cam.to(f32), valid.to(f32), tlx, tly, tlz, itden,
               q1x, q1y, q2x, q2y, dirn[0], dirn[1], dirn[2],
-              torch.zeros((S, M), dtype=f32, device=dev)]
-    pm = torch.stack(planes, dim=1).contiguous()     # [S, 16, M]
+              torch.zeros((S, M), dtype=f32, device=cam.device)]
+    return torch.stack(planes, dim=1).contiguous()
+
+
+def kernel_inputs(segs_src, RtKinv_src, C_src, valid, P_nb, sigma_p,
+                  sigma_a, spatial_k, support_threshold=0.5):
+    """The per-row tables the scoring kernel derives from the source view
+    (scoring_pallas.py:390-448), in plain PyTorch.
+
+    Returns (btab [S, 6N] f32 (P_n[:, :3] @ ray for both endpoint rays,
+    layout n*6 + k), atab [3N] f32 (P_n @ [C_src; 1]), params [4] f32
+    (kernel_params), need [S] int32 (row_need)).
+    """
+    S = segs_src.shape[0]
+    p1, p2 = g.seg_endpoints(segs_src)
+    ray1 = g.ray_dir(RtKinv_src, p1)
+    ray2 = g.ray_dir(RtKinv_src, p2)
 
     # projection of C_src + d*ray into camera n = a_n + d * (P_n[:,:3] ray)
-    Pr = P_nb.to(f32)                                # [N, 3, 4]
+    Pr = P_nb.to(torch.float32)                      # [N, 3, 4]
     N = Pr.shape[0]
     btabs = []
     for ray in (ray1, ray2):
@@ -247,13 +258,7 @@ def kernel_inputs(segs_src, RtKinv_src, C_src, cam, tgt, depths, valid,
     atab = (Pr[:, :, 0] * C_src[0] + Pr[:, :, 1] * C_src[1]
             + Pr[:, :, 2] * C_src[2] + Pr[:, :, 3]).reshape(N * 3) \
         .contiguous()
-
-    sp = torch.as_tensor(sigma_p, dtype=f32, device=dev)
-    sa = torch.as_tensor(sigma_a, dtype=f32, device=dev)
-    params = torch.stack([
-        1.0 / (2.0 * sp * sp),
-        1.0 / (2.0 * sa * sa),
-        torch.as_tensor(spatial_k, dtype=f32, device=dev),
-        torch.as_tensor(support_threshold, dtype=f32, device=dev),
-    ]).contiguous()
-    return pm, btab, atab, params, row_need(valid).contiguous()
+    params = torch.tensor(kernel_params(sigma_p, sigma_a, spatial_k,
+                                        support_threshold),
+                          dtype=torch.float32, device=valid.device)
+    return btab, atab, params, row_need(valid).contiguous()

@@ -43,12 +43,16 @@ _F = ctypes.c_float
 # C signatures: every pointer and the stream as c_void_p (a plain int would
 # be cut to 32 bits), every count as c_int
 _SIGNATURES = {
-    "l3d_pair_valid": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P],
+    "l3d_pair_valid": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
     "l3d_pair_dense": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
     "l3d_collin_keep": [_P, _P, _F, _I, _P, _P],
-    "l3d_score": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P],
+    "l3d_score": [_P] * 8 + [_F] * 4 + [_I] * 3 + [_P, _P, _I, _P],
+    "l3d_score_scratch_bytes": [_I, _I, _I, _I],
     "l3d_fma_peak": [_P, _F, _F, _I, _I, _P, _P],
 }
+
+# return types other than a CUDA error code (c_int)
+_RESTYPES = {"l3d_score_scratch_bytes": ctypes.c_longlong}
 
 
 def sources() -> list:
@@ -131,7 +135,7 @@ def lib():
             for name, argtypes in _SIGNATURES.items():
                 fn = getattr(handle, name)
                 fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
+                fn.restype = _RESTYPES.get(name, ctypes.c_int)
             handle.l3d_error_string.argtypes = [ctypes.c_int]
             handle.l3d_error_string.restype = ctypes.c_char_p
             _lib = handle

@@ -40,17 +40,19 @@ class Line3D:
     """Line-based multi-view stereo on PyTorch, with hand-written CUDA
     kernels on an NVIDIA GPU.
 
-        l3d = Line3D(config, device="cuda")
+        l3d = Line3D(config)                  # on the card
         for v, segs in enumerate(segment_lists):
             l3d.add_view_segments(v, segs, K, R, t, worldpoint_ids, w, h)
         result = l3d.compute_3d_model()
         l3d.save_3d_lines_as_txt(result, "out.txt")
 
-    On `device="cpu"` every kernel runs as its plain PyTorch twin; on a
-    CUDA device every kernel runs on the card (there is no fallback).
+    The device is "cuda" unless the caller asks for the CPU, and the
+    constructor raises when CUDA is missing: there is no quiet CPU run.
+    On a CUDA device every kernel runs on the card (there is no fallback);
+    on `device="cpu"` every kernel runs as its plain PyTorch twin.
     """
 
-    def __init__(self, config: L3DConfig = DEFAULT_CONFIG, device="cpu",
+    def __init__(self, config: L3DConfig = DEFAULT_CONFIG, device="cuda",
                  verbose: bool = False):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():

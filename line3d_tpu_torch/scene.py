@@ -40,7 +40,7 @@ class Scene:
     wp_lists: list | None = None
     collin: list | None = None
     config: L3DConfig = dataclasses.field(default_factory=lambda: DEFAULT_CONFIG)
-    device: torch.device | str = "cpu"
+    device: torch.device | str = "cuda"
 
     def __post_init__(self):
         self.device = torch.device(self.device)
@@ -65,7 +65,7 @@ class Scene:
     def from_ragged(segment_lists: list, cameras: CameraSet,
                     wp_lists=None, collin=None,
                     config: L3DConfig = DEFAULT_CONFIG,
-                    device="cpu") -> "Scene":
+                    device="cuda") -> "Scene":
         """Build a padded Scene from per-view [S_v, 4] segment arrays; the
         segment axis pads to a multiple of `config.pad_multiple`."""
         V = len(segment_lists)

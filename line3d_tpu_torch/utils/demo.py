@@ -90,7 +90,7 @@ def make_facade_scene(num_views: int = 25, width: int = 1920,
                       height: int = 1440, focal: float = 1800.0,
                       seed: int = 0, config: L3DConfig = DEFAULT_CONFIG,
                       n_cols: int = 12, n_rows: int = 10,
-                      distance: float = 13.0, device="cpu"):
+                      distance: float = 13.0, device="cuda"):
     """Structured-geometry benchmark scene at realistic match density.
 
     Cameras sweep an arc in front of the facade (like the Herz-Jesu-P25

@@ -36,7 +36,7 @@ H100_FP32_PEAK = 67e12
 LAUNCHES = 0
 
 
-def chain_starts(n: int, seed: int = 0, device="cpu") -> torch.Tensor:
+def chain_starts(n: int, seed: int = 0, *, device) -> torch.Tensor:
     """[n, CHAINS] float32 chain start values in [0, 2), from a seed."""
     rng = np.random.default_rng(seed)
     x = rng.uniform(0.0, 2.0, (n, CHAINS)).astype(np.float32)

@@ -70,7 +70,7 @@ def make_scene(num_views: int = 6, width: int = 640, height: int = 480,
                noise_px: float = 0.0, seed: int = 0,
                min_len_px: float = 10.0,
                wps_per_line: int = 6,
-               elevation: float = 0.35, device="cpu") -> SyntheticScene:
+               elevation: float = 0.35, device="cuda") -> SyntheticScene:
     rng = np.random.default_rng(seed)
     lines = house_wireframe()
     V = num_views

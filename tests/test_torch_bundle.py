@@ -23,7 +23,8 @@ def _args(fx, clean=False):
 @pytest.mark.parametrize("seed,iterations", [(3, 8), (5, 5)])
 def test_bundle_matches_reference(seed, iterations):
     fx = _bundle_fixture(seed=seed)
-    got = tb.bundle_adjust(*_args(fx), iterations=iterations)
+    got = tb.bundle_adjust(*_args(fx), iterations=iterations,
+                           device="cpu")
     want = jb.bundle_adjust(*_args(fx), iterations=iterations)
     for g, w in zip(got[:4], want[:4]):
         assert g.shape == w.shape and g.dtype == np.float64
@@ -39,14 +40,16 @@ def test_bundle_gauge_pinned_and_member_data_identical():
                                                 fx["scene"].segments),
                     (fx["vidx"], fx["p1"], fx["p2"], fx["mask"])):
         np.testing.assert_array_equal(a, b)
-    _, _, Rf, tf, _, _ = tb.bundle_adjust(*_args(fx), iterations=4)
+    _, _, Rf, tf, _, _ = tb.bundle_adjust(*_args(fx), iterations=4,
+                                          device="cpu")
     np.testing.assert_allclose(Rf[0], fx["R_pert"][0], atol=1e-6)
     np.testing.assert_allclose(tf[0], fx["t_pert"][0], atol=1e-6)
 
 
 def test_bundle_noop_on_clean_scene():
     fx = _bundle_fixture(rot_noise=0.0, t_noise=0.0)
-    got = tb.bundle_adjust(*_args(fx, clean=True), iterations=4)
+    got = tb.bundle_adjust(*_args(fx, clean=True), iterations=4,
+                           device="cpu")
     want = jb.bundle_adjust(*_args(fx, clean=True), iterations=4)
     assert got[5] <= got[4] + 1e-6 and got[5] < 0.35
     assert abs(got[5] - want[5]) < 1e-3

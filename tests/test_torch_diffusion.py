@@ -78,11 +78,13 @@ def test_device_modes_match_reference_device(mode, seed, iterations):
     i, j, w = _random_sym_graph(60, 220, seed)
     if mode == "reference":
         want = jdd.diffuse_reference_device(i, j, w, 60, iterations)
-        got = tdd.diffuse_reference_device(i, j, w, 60, iterations)
+        got = tdd.diffuse_reference_device(i, j, w, 60, iterations,
+                                           device="cpu")
         host = jd.diffuse_reference(i, j, w, 60, iterations)
     else:
         want = jdd.diffuse_true_device(i, j, w, 60, iterations)
-        got = tdd.diffuse_true_device(i, j, w, 60, iterations)
+        got = tdd.diffuse_true_device(i, j, w, 60, iterations,
+                                      device="cpu")
         host = jd.diffuse_true(i, j, w, 60, iterations)
     _same_edges(got, want)
     _same_edges(got, host)
@@ -97,7 +99,8 @@ def test_run_diffusion_on_house_graph(house_graph, mode, backend):
     jd.run_diffusion(g_j, JConfig(diffusion_mode=mode,
                                   diffusion_backend=backend))
     td.run_diffusion(g_t, L3DConfig(diffusion_mode=mode,
-                                    diffusion_backend=backend))
+                                    diffusion_backend=backend),
+                     device="cpu")
     assert len(g_t.edges_w) == len(house_graph.edges_w) > 500
     _same_edges((g_t.edges_i, g_t.edges_j, g_t.edges_w),
                 (g_j.edges_i, g_j.edges_j, g_j.edges_w))
@@ -111,9 +114,9 @@ def test_device_diffusion_is_deterministic(house_graph, mode):
     fn = tdd.diffuse_reference_device if mode == "reference" \
         else tdd.diffuse_true_device
     a = fn(g.edges_i.astype(np.int64), g.edges_j.astype(np.int64),
-           g.edges_w.astype(np.float64), g.num_nodes)
+           g.edges_w.astype(np.float64), g.num_nodes, device="cpu")
     b = fn(g.edges_i.astype(np.int64), g.edges_j.astype(np.int64),
-           g.edges_w.astype(np.float64), g.num_nodes)
+           g.edges_w.astype(np.float64), g.num_nodes, device="cpu")
     for x, y in zip(a, b):
         np.testing.assert_array_equal(x, y)
 

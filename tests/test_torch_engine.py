@@ -6,6 +6,10 @@ seg) keys; the same target, or one that JAX itself scores within 1e-5 of
 its own pick (on this noise-free scene most segments have several targets
 whose confidences tie to the last bits, and the first maximum then depends
 on rounding).  Scores rtol 1e-5; median depths rtol 1e-6."""
+import importlib
+import inspect
+import pkgutil
+
 import numpy as np
 import pytest
 import torch
@@ -15,6 +19,7 @@ from line3d_tpu.core.conditioning import compute_conditioning
 from line3d_tpu.match import engine as je
 from line3d_tpu.scene import view_similarities_from_worldpoints, \
     find_visual_neighbors
+import line3d_tpu_torch
 from line3d_tpu_torch import Line3D, L3DConfig, convert
 from line3d_tpu_torch.match import engine as te
 from synthetic import make_scene
@@ -93,3 +98,54 @@ def test_cuda_device_without_cuda_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="cuda"):
         Line3D(device="cuda")
+
+
+def test_line3d_defaults_to_the_card(monkeypatch):
+    """No device means "cuda": without CUDA the constructor raises rather
+    than run quietly on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        Line3D()
+    with pytest.raises(RuntimeError, match="cuda"):
+        Line3D(L3DConfig(use_collinearity=True))
+
+
+def _port_signatures():
+    """(qualified name, signature) of every function, class and method
+    defined in line3d_tpu_torch."""
+    for info in pkgutil.walk_packages(line3d_tpu_torch.__path__,
+                                      "line3d_tpu_torch."):
+        mod = importlib.import_module(info.name)
+        for name, obj in vars(mod).items():
+            if getattr(obj, "__module__", None) != mod.__name__:
+                continue
+            if inspect.isfunction(obj):
+                yield f"{mod.__name__}.{name}", inspect.signature(obj)
+            elif inspect.isclass(obj):
+                yield f"{mod.__name__}.{name}", inspect.signature(obj)
+                for mname, m in vars(obj).items():
+                    m = getattr(m, "__func__", m)
+                    if inspect.isfunction(m):
+                        yield (f"{mod.__name__}.{name}.{mname}",
+                               inspect.signature(m))
+
+
+def test_no_device_parameter_defaults_to_the_cpu():
+    sigs = dict(_port_signatures())
+    with_device = {k: s.parameters["device"].default for k, s in sigs.items()
+                   if "device" in s.parameters}
+    cpu = {k: d for k, d in with_device.items()
+           if d is not inspect.Parameter.empty and str(d) == "cpu"}
+    assert not cpu, cpu
+    assert len(sigs) > 100 and len(with_device) > 10
+    for k in ("pipeline.Line3D", "scene.Scene", "scene.Scene.from_ragged",
+              "utils.demo.make_facade_scene", "utils.synthetic.make_scene",
+              "convert.scene_from_reference"):
+        assert with_device["line3d_tpu_torch." + k] == "cuda", k
+    for k in ("cluster.diffusion.run_diffusion",
+              "cluster.diffusion_device.diffuse_reference_device",
+              "cluster.diffusion_device.diffuse_true_device",
+              "fit.lines.process_clusters", "fit.refine.refine_lines_device",
+              "fit.bundle.bundle_adjust", "utils.peak.chain_starts"):
+        assert with_device["line3d_tpu_torch." + k] is \
+            inspect.Parameter.empty, k

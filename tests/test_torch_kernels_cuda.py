@@ -5,14 +5,16 @@ Run them on the card with
     python -m pytest tests/test_torch_kernels_cuda.py -q -m cuda --noconftest
 (`--noconftest`: tests/conftest.py configures JAX, which these tests do not
 use).
-Tolerances: K1 and K5 at most 4e-4 of the valid pairs may disagree, K5's
+Tolerances: K1 and K5 at most 4e-4 of the valid pairs may disagree with
+the twin, and K1's plane equals K5's valid plane pair for pair; K5's
 depths rtol 1e-3 / atol 1e-4 on the pairs valid in both; K4 a superset of
 the dense plane with at most margin extras; scoring rtol 2e-3 / atol 2e-4,
 where fewer than 1e-4 of the scored slots may differ by a support whose
-confidence sits at the threshold; K6 chain sums within peak.CHAIN_RTOL of
-the twin's.  Device diffusion: tests/test_cluster.py's rtol 2e-4 /
-atol 1e-7 against the float64 host; device refine: tests/test_refine.py's
-criteria against the host."""
+confidence sits at the threshold, at widths that fit a block's shared
+memory and at M = 4096, which does not; K6 chain sums within
+peak.CHAIN_RTOL of the twin's.  Device diffusion: tests/test_cluster.py's
+rtol 2e-4 / atol 1e-7 against the float64 host; device refine:
+tests/test_refine.py's criteria against the host."""
 import os
 
 import numpy as np
@@ -67,6 +69,41 @@ def test_pair_valid_kernel_matches_plain(dev):
     assert int((got != want).sum()) <= 4e-4 * n_valid
 
 
+def _facade_view(dev, n=10):
+    """Facade view 0 (S = 1280) against views 1..n, conditioned as the
+    pipeline conditions them."""
+    from line3d_tpu_torch.core.conditioning import compute_conditioning
+    from line3d_tpu_torch.match import engine
+    from line3d_tpu_torch.utils.demo import make_facade_scene
+    cfg = L3DConfig()
+    scene, cams = make_facade_scene(num_views=n + 1, config=cfg, device=dev)
+    tr_ = compute_conditioning(cams.C)
+    cams.transform(tr_.Qinv, tr_.scale)
+    ctx = engine.ViewContext(scene, cams, cfg)
+    segs_nb, mask_nb, F_nb, RtKinv_nb, C_nb, _ = ctx.neighbor_arrays(
+        0, np.arange(1, n + 1))
+    return (scene.segments_t[0], scene.seg_mask_t[0], segs_nb, mask_nb,
+            F_nb, ctx.RtKinv32[0], RtKinv_nb, ctx.C32[0], C_nb)
+
+
+@pytest.mark.parametrize("case", ["house", "facade"])
+def test_pair_valid_equals_pair_dense_valid(dev, case):
+    """K1 triangulates only the pairs that pass the cheap gates and takes a
+    depth's sign from num * denom; K5 triangulates every pair and takes it
+    from num * (1 / denom).  The two planes agree pair for pair."""
+    a = _house_view(dev) if case == "house" else _facade_view(dev)
+    stats = torch.zeros(2, dtype=torch.int64, device=dev)
+    got = k1.pair_valid_cuda(*a, stats=stats)
+    _, want = k1.pair_dense_cuda(*a)
+    differ = (got != want).nonzero().tolist()
+    print(f"{case}: {int(want.sum())} valid pairs, cheap-gate survivors "
+          f"{int(stats[0])}, warps holding any {int(stats[1])}, differing "
+          f"pairs {differ[:20]}")
+    assert not differ
+    assert int(want.sum()) <= int(stats[0]) <= got.numel()
+    assert int(stats[1]) * 32 >= int(stats[0])
+
+
 def test_collin_keep_kernel_matches_plain(dev):
     rng = np.random.default_rng(3)
     segs = torch.as_tensor(rng.uniform(0, 300, (384, 4)).astype(np.float32),
@@ -85,7 +122,12 @@ def test_collin_keep_kernel_matches_plain(dev):
     assert int((got != want).sum()) <= max(2, int(1e-3 * int(dense.sum())))
 
 
-def _score_inputs(dev, S, M, Nc, St, seed, need_rows=None):
+def _score_inputs(dev, S, M, Nc, St, seed, need_rows=None, spatial_k=3.0,
+                  bad_invalid_depths=False):
+    """A random match table.  With a small spatial_k, d2 follows d1 within
+    3% so that the spatial gate passes runs of the sorted d1 keys; with
+    bad_invalid_depths the invalid slots hold NaN, +-inf, 0 and negative
+    depths."""
     rng = np.random.default_rng(seed)
     cam = rng.integers(-1, Nc, (S, M)).astype(np.int32)
     valid = (rng.uniform(size=(S, M)) < 0.4) & (cam >= 0)
@@ -94,14 +136,21 @@ def _score_inputs(dev, S, M, Nc, St, seed, need_rows=None):
             valid[s, nd:] = False
             cam[s, nd - 1] = max(cam[s, nd - 1], 0)
             valid[s, nd - 1] = True
+    depths = rng.uniform(0.5, 3.0, (S, M, 4)).astype(np.float32)
+    if spatial_k < 1.0:
+        depths[..., 1] = depths[..., 0] * rng.uniform(0.97, 1.03, (S, M))
+    if bad_invalid_depths:
+        bad = np.array([np.nan, np.inf, -np.inf, 0.0, -0.0, -1.0],
+                       np.float32)
+        depths[~valid] = rng.choice(bad, (int((~valid).sum()), 4))
     t = lambda x: torch.as_tensor(x, device=dev)  # noqa: E731
     f32 = lambda x: np.asarray(x, np.float32)  # noqa: E731
     return (t(f32(rng.uniform(0, 300, (S, 4)))), t(f32(np.eye(3))),
             t(f32(rng.normal(size=3))), t(cam),
             t(rng.integers(0, St, (S, M)).astype(np.int32)),
-            t(f32(rng.uniform(0.5, 3.0, (S, M, 4)))), t(valid),
+            t(depths), t(valid),
             t(f32(rng.normal(size=(Nc, 3, 4)))),
-            t(f32(rng.uniform(0, 300, (Nc, St, 4)))), 200.0, 90.0, 3.0)
+            t(f32(rng.uniform(0, 300, (Nc, St, 4)))), 200.0, 90.0, spatial_k)
 
 
 def _check_scores(got, want):
@@ -122,16 +171,41 @@ def test_score_kernel_matches_plain(dev, S, M, Nc, St, seed):
     _check_scores(got, k23.score_plain(*a))
 
 
-def test_score_kernel_need_not_multiple_of_tile(dev):
-    """Staged m2 tiles end mid-tile: every row's need is off the 128 grid,
-    so the last tile of each row is partial (write-after-read check of the
-    shared-memory staging)."""
+@pytest.mark.parametrize("spatial_k,bad", [(3.0, False), (0.05, True)])
+def test_score_kernel_need_not_multiple_of_tile(dev, spatial_k, bad):
+    """Every row's need is off the 256-thread grid, so each thread owns a
+    different number of slots; with bad=True the invalid slots hold NaN,
+    +-inf, 0 and negative depths, which must not enter the sorted keys."""
     needs = [1, 2, 127, 129, 200, 255, 257, 300, 383, 385, 511, 600]
-    a = _score_inputs(dev, len(needs), 640, 6, 500, 7, need_rows=needs)
+    a = _score_inputs(dev, len(needs), 640, 6, 500, 7, need_rows=needs,
+                      spatial_k=spatial_k, bad_invalid_depths=bad)
     got = k23.score(*a)
     need = sc.row_need(a[6])
     assert sorted(need.tolist()) == sorted(needs)
     _check_scores(got, k23.score_plain(*a))
+    assert bool(torch.isfinite(got).all())
+
+
+@pytest.mark.parametrize("S,M,Nc,St,seed,k", [(16, 512, 8, 300, 11, 0.05),
+                                               (8, 1024, 6, 400, 3, 0.1)])
+def test_score_kernel_windowed_gate_matches_plain(dev, S, M, Nc, St, seed,
+                                                  k):
+    """A spatial_k small enough that each slot's window of sorted d1 keys
+    is a short run of its row."""
+    a = _score_inputs(dev, S, M, Nc, St, seed, spatial_k=k)
+    _check_scores(k23.score(*a), k23.score_plain(*a))
+
+
+def test_score_kernel_rows_beyond_shared_memory(dev):
+    """M = 4096: a row's slots (60 bytes each) exceed a block's shared
+    memory, so the kernel keeps them in the wrapper's global scratch."""
+    from line3d_tpu_torch.native import cuda
+    lib = cuda.lib()
+    assert lib.l3d_score_scratch_bytes(1024, 10, 1280, 0) == 0
+    assert lib.l3d_score_scratch_bytes(4096, 8, 6, 0) > 0
+    a = _score_inputs(dev, 6, 4096, 8, 400, 13, spatial_k=0.05)
+    assert int(sc.row_need(a[6]).max()) > 4000
+    _check_scores(k23.score(*a), k23.score_plain(*a))
 
 
 def test_wrappers_reject_bad_inputs(dev):

@@ -37,7 +37,7 @@ def _house10(config=L3DConfig(use_collinearity=True), **scene):
 def _feed(l3d, **scene):
     """Every view of the 10-view synthetic house (make_scene(**scene))
     added to a Line3D of either package."""
-    syn = make_scene(num_views=10, **scene)
+    syn = make_scene(num_views=10, device="cpu", **scene)
     for v in range(syn.scene.num_views):
         l3d.add_view_segments(
             v, syn.scene.segments[v][syn.scene.seg_mask[v]],

@@ -74,7 +74,8 @@ def test_host_matches_reference_host(members):
 def test_device_matches(members, against):
     mviews, msegs, segs, P, P0, d0 = members
     data = jr.build_cluster_member_data(mviews, msegs, segs, P)
-    got = tr.refine_lines_device(P0, d0, *data, iterations=8)
+    got = tr.refine_lines_device(P0, d0, *data, iterations=8,
+                                 device="cpu")
     if against == "host":
         want = tr.refine_lines(P0, d0, *data, iterations=8)
     else:
@@ -96,7 +97,8 @@ def test_device_recovers_perturbed_line():
     P0 = (A + B) / 2 + rng.normal(0, 0.05, 3)
     d0 = d_true + rng.normal(0, 0.05, 3)
     P0r, dr, rms_b, rms_a = tr.refine_lines_device(
-        P0[None], (d0 / np.linalg.norm(d0))[None], *data, iterations=10)
+        P0[None], (d0 / np.linalg.norm(d0))[None], *data, iterations=10,
+        device="cpu")
     assert rms_a[0] < rms_b[0] and rms_a[0] < 0.1
     assert abs(float(dr[0] @ d_true)) > 0.99999
     assert np.linalg.norm(np.cross(P0r[0] - A, d_true)) < 1e-3

@@ -1,5 +1,6 @@
 """line3d_tpu_torch.match.scoring (the plain twin of kernels K2/K3 and the
-kernel-side prep) against line3d_tpu.match.scoring / scoring_pallas.
+plain form of the terms the kernel derives while staging a row) against
+line3d_tpu.match.scoring / scoring_pallas.
 
 Inputs are those of tests/test_pallas.py:92-160 (random tables with random
 validity, so rows are NOT packed valid-first).  Confidences: rtol 2e-3 /
@@ -12,6 +13,7 @@ import pytest
 
 from line3d_tpu.match import scoring as js, scoring_pallas as jsp
 from line3d_tpu_torch.match import scoring as ts, scoring_cuda
+from line3d_tpu_torch.match.pairwise import gather_target_coords
 from torch_port_helpers import N, T
 
 # (S, M, N, St, seed): M=128 takes the untiled K3 form, M=512 the tiled K2
@@ -82,11 +84,14 @@ def test_kernel_inputs_match_pallas_prep(monkeypatch, M):
         need = None
     else:
         need, _camlo, _camhi, params, pm, _pm2, btab, atab = ops
-    got = ts.kernel_inputs(
-        T(d["segs_src"]), T(d["RtKinv"]), T(d["C"]), T(d["cam"]),
-        T(d["tgt"]), T(d["depths"]), T(d["valid"]), T(d["P_nb"]),
-        T(d["segs_nb"]), *(float(x) for x in SIG))
-    g_pm, g_btab, g_atab, g_params, g_need = (N(x) for x in got)
+    tcoords = gather_target_coords(T(d["segs_nb"]), T(d["cam"]),
+                                   T(d["tgt"]))
+    g_pm = N(ts.slot_terms(T(d["segs_src"]), T(d["RtKinv"]), T(d["cam"]),
+                           T(d["depths"]), T(d["valid"]), tcoords))
+    got = ts.kernel_inputs(T(d["segs_src"]), T(d["RtKinv"]), T(d["C"]),
+                           T(d["valid"]), T(d["P_nb"]),
+                           *(float(x) for x in SIG))
+    g_btab, g_atab, g_params, g_need = (N(x) for x in got)
     pm = N(pm)
     assert g_pm.shape == pm.shape
     # the direction planes (12-14) normalize d2 ray2 - d1 ray1, which XLA
