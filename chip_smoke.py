@@ -7,14 +7,18 @@ Phases (each prints its own lines and its seconds; any failure raises and
 exits non-zero):
   1. device    require CUDA; print the card's name and power limit.
   2. build     compile the CUDA kernels (csrc/*.cu, one nvcc per source in
-               parallel, sm_90a) and the native host library from the
-               checkout; print the seconds.
+               parallel, sm_90a) and the native host library (the port's
+               own native/*.cpp, one g++) from the checkout; print the
+               seconds.
   3. kernels   each kernel against its plain PyTorch twin on the card, on
                inputs cut from view 0 of the 25-view facade scene: K1 (pair
                valid plane, with the pairs that pass its cheap gates and
-               the warps holding any), K4 (collinearity keep plane), and
-               the scoring kernel at M=256 and M=1024 (with the dense
-               walk's pair tests and the spatial gate's survivors); errors,
+               the warps holding any), K4 (every view's collinear pair
+               lists in one call: the 25 facade views at quota 8 and 1,
+               a 512-segment chain where the cap bites, S=100 with a
+               masked view, S=2990), and the scoring kernel at M=256 and
+               M=1024 (with the dense walk's pair tests and the spatial
+               gate's survivors); errors,
                CUDA-event times and each kernel's bound.
   4. validate  K5 (dense depth planes) through `pair_dense`, the port's
                counterpart of scripts/tpu_validate.py's phase 2: the house
@@ -92,9 +96,10 @@ K1_TWIN_DISAGREE = {1: 1, 10: 8}
 # multiply, compare, divide, square root, exp or acos counts one): K1's
 # cheap gates (4 intersections, 2 overlap ratios, the gate, the masks) and
 # its triangulation gates (4 ray normalizations, 4 two-ray depths); K5 does
-# both for every pair; K4's gate; the scoring kernel per staged slot, per
-# spatial-gate test and per pair that passes the spatial gate
-K1_CHEAP_OPS, K1_TRI_OPS, K4_OPS = 254, 235, 63
+# both for every pair; K4's gate per pair and its regate per candidate
+# within the quota; the scoring kernel per staged slot, per spatial-gate
+# test and per pair that passes the spatial gate
+K1_CHEAP_OPS, K1_TRI_OPS, K4_OPS, K4_REGATE_OPS = 254, 235, 63, 21
 SCORE_SLOT_OPS, SCORE_GATE_OPS, SCORE_PAIR_OPS = 48, 8, 73
 # the card's float32 rate outside the tensor cores and its memory rate
 # (NVIDIA H100 SXM data sheet), the denominators of every bound.  67e12
@@ -103,6 +108,10 @@ SCORE_SLOT_OPS, SCORE_GATE_OPS, SCORE_PAIR_OPS = 48, 8, 73
 # exp or acos many), so an operations bound is a floor about 2x below what
 # they can reach.
 PEAK_F32, PEAK_BYTES = 67e12, 3.35e12
+# K4's weights against its twin: the same operations in the same order,
+# so equal bits are expected; any weight that differs is counted and must
+# stay within this
+K4_W_ATOL = 1e-6
 # K5 depths against the twin on pairs valid in both (tpu_validate.py)
 DEPTH_RTOL, DEPTH_ATOL = 1e-3, 1e-4
 # device diffusion against the float64 host (tests/test_cluster.py)
@@ -237,9 +246,8 @@ def phase_build():
 
 def phase_kernels():
     import torch
-    from line3d_tpu_torch.match import collinearity as col, engine, \
-        collinearity_cuda as k4, pairwise, pairwise_cuda as k1, \
-        scoring as sc, scoring_cuda as k23
+    from line3d_tpu_torch.match import engine, pairwise, \
+        pairwise_cuda as k1, scoring as sc, scoring_cuda as k23
     dev = torch.device("cuda")
     cfg, scene, cams, nbrs = facade_inputs(dev)
     ctx = engine.ViewContext(scene, cams, cfg)
@@ -287,30 +295,8 @@ def phase_kernels():
                              bound_by=b_by, survivors=n_surv,
                              warps_with_survivor=n_warps)
 
-    # K4: one view's keep plane
-    sig2 = float(np.float32(cfg.collinearity_sigma ** 2))
-    thr = k4.keep_threshold_sq(sig2, cfg.collinearity_aff_threshold)
-    got = k4.collin_keep_cuda(segs0, mask0, thr)
-    want = k4.collin_keep_plain(segs0, mask0, thr)
-    dense = col.collinearity_matrix(segs0, mask0, sig2) > 0
-    bad = int((got != want).sum())
-    missing = int((dense & ~got).sum())
-    extra = int((got & ~dense).sum())
-    log(f"[kernels] K4 collin_keep S={S}: {int(got.sum())} kept, {bad} "
-        f"disagree with plain, {missing} of {int(dense.sum())} dense pairs "
-        f"missing, {extra} margin extras")
-    require(missing == 0, "K4 plane is not a superset of the dense plane")
-    require(bad <= max(2, int(1e-3 * int(dense.sum()))),
-            "K4 disagrees with its plain twin")
-    ms = cuda_ms(lambda: k4.collin_keep_cuda(segs0, mask0, thr), 20)
-    plain_ms = cuda_ms(lambda: k4.collin_keep_plain(segs0, mask0, thr), 5)
-    b_ms, b_by = bound_ms(got.numel() * K4_OPS,
-                          S * 17 + got.numel())
-    log(f"[kernels] K4: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms; bound "
-        f"{b_ms:.4f} ms by {b_by}")
-    out["collin_keep"] = dict(max_abs_err=float(bad > 0), disagree=bad,
-                              ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                              bound_by=b_by)
+    # K4: every facade view's pair lists in one call, then the edge cases
+    out["collin_pairs"] = phase_k4(scene)
 
     # scoring: view 0's exact match table, cut or padded to M slots
     o = engine.match_view(ctx, v, nb)
@@ -381,6 +367,138 @@ def phase_kernels():
                                bound_by=b_by, old_prep_ms=old_prep_ms,
                                pair_tests_dense=dense, gate_pass=n_pass)
     return out
+
+
+def collin_chain(n=512):
+    """One chain of n collinear, non-overlapping segments (integer
+    endpoints, every other one 1 px higher): each row fills its quota in
+    every 128-partner block, n * 32 survivors against a cap of 8,192."""
+    t = np.arange(n) * 6 + 10
+    up = np.arange(n) % 2
+    return (np.stack([t, t + up, t + 4, t + 4 + up], 1)[None]
+            .astype(np.float32), np.ones((1, n), bool))
+
+
+def collin_random(seed, V, S, n_chains):
+    """V views of S random segments in 1920 x 1440, the first 8 * n_chains
+    in chains of 8 nearly collinear pieces (tests/test_torch_kernels_cuda.py
+    makes the same kind of input)."""
+    rng = np.random.default_rng(seed)
+    ext = np.array([1920.0, 1440.0])
+    segs = np.empty((V, S, 4), np.float32)
+    for v in range(V):
+        segs[v] = rng.uniform(0, 1, (S, 4)) * np.tile(ext, 2)
+        for c in range(n_chains):
+            o = rng.uniform(0, 1, 2) * ext
+            th = rng.uniform(0, np.pi)
+            d = np.array([np.cos(th), np.sin(th)])
+            t = np.cumsum(rng.uniform(15, 40, 16))
+            for k in range(8):
+                segs[v, c * 8 + k] = np.concatenate(
+                    [o + t[2 * k] * d, o + t[2 * k + 1] * d]) + \
+                    rng.normal(0, 0.3, 4)
+    return segs, np.ones((V, S), bool)
+
+
+def phase_k4(scene):
+    """K4 against its plain twin on the card: all 25 facade views at the
+    main path's quota (8) and at quota 1 (drops, then the exact fallback),
+    the 512-segment chain (the cap bites), S = 100 with a fully masked
+    view, and two views at the P25 stress scene's S = 2,990.  Keys, counts
+    and dropped_per_view must be identical; weights are compared bit for
+    bit, and any that differ must be within K4_W_ATOL.  Then the times and
+    the bound at the main path's call."""
+    import torch
+    from line3d_tpu_torch.match import collinearity as col, \
+        collinearity_cuda as k4
+    dev = torch.device("cuda")
+    sig2 = np.float32(2.0 ** 2)
+    t = lambda x: torch.as_tensor(x, device=dev)  # noqa: E731
+    chain = collin_chain()
+    s100, m100 = collin_random(100, 3, 100, 6)
+    m100[1] = False
+    m100[0, ::7] = False
+    cases = [("facade", scene.segments_t, scene.seg_mask_t, 8),
+             ("facade quota 1", scene.segments_t, scene.seg_mask_t, 1),
+             ("chain 512", t(chain[0]), t(chain[1]), 8),
+             ("S=100, view 1 masked", t(s100), t(m100), 8),
+             ("S=2990", *map(t, collin_random(2990, 2, 2990, 40)), 8)]
+    res, n_differ, max_diff = {}, 0, 0.0
+    for name, segs, masks, quota in cases:
+        got = col.collinearity_compact_all(segs, masks, sig2, quota=quota)
+        want = col.collinearity_compact_all_plain(segs, masks, sig2,
+                                                  quota=quota)
+        g = [x.cpu().numpy() for x in got]
+        w = [x.cpu().numpy() for x in want]
+        S = segs.shape[1]
+        mg = col.collinearity_finalize(*g, max_segments=S)
+        mw = col.collinearity_finalize(*w, max_segments=S)
+        differ = g[1] != w[1]
+        diff = float(np.abs(g[1] - w[1]).max()) if g[1].size else 0.0
+        n_differ += int(differ.sum())
+        max_diff = max(max_diff, diff)
+        log(f"[kernels] K4 {name}: {segs.shape[0]} views x S={S}, C="
+            f"{g[0].shape[1]}, {int((g[0] >= 0).sum())} pairs, candidates "
+            f"{int(g[2].sum())}, dropped {mg.dropped_total}; keys equal "
+            f"{np.array_equal(g[0], w[0])}, counts equal "
+            f"{np.array_equal(g[2], w[2])}, {int(differ.sum())} weights "
+            f"differ (max {diff:.3e})")
+        require(np.array_equal(g[0], w[0]) and np.array_equal(g[2], w[2]),
+                f"K4 {name}: pairs or counts differ from the twin")
+        require(np.array_equal(mg.dropped_per_view, mw.dropped_per_view),
+                f"K4 {name}: dropped_per_view differs from the twin")
+        require(diff <= K4_W_ATOL, f"K4 {name}: weights differ")
+        if name == "facade quota 1":
+            require(mg.dropped_total > 0, "K4 quota 1 dropped nothing")
+            fixed, n_views = col.apply_collinearity_exact_fallback(
+                mg, segs, masks, 2.0)
+            log(f"[kernels] K4 quota 1: the exact fallback re-derived "
+                f"{n_views} views")
+            require(fixed.dropped_total == 0, "K4 fallback left drops")
+        if name == "chain 512":
+            require(bool((g[0] >= 0).all()) and g[0].shape[1] == 8192,
+                    "K4: the cap did not bite on the chain")
+        if name.startswith("S=100"):
+            require(g[2][1] == 0 and bool((g[0][1] == -1).all()),
+                    "K4: the masked view has pairs")
+        res[name] = dict(pairs=int((g[0] >= 0).sum()), count=int(g[2].sum()),
+                         weights_differ=int(differ.sum()), max_abs_err=diff)
+
+    segs, masks = scene.segments_t, scene.seg_mask_t
+    V, S = masks.shape
+    run = lambda: col.collinearity_compact_all(segs, masks, sig2)  # noqa
+    ms = cuda_ms(run, 20)
+    plain_ms = cuda_ms(lambda: col.collinearity_compact_all_plain(
+        segs, masks, sig2), 5)
+    # history: the replaced path as the host paid for it, the per-view
+    # loop (here with its keep plane in PyTorch: the old per-view K4
+    # kernel is gone) through the readback, by host clock
+    reps, t0 = 5, time.perf_counter()
+    for _ in range(reps):
+        [x.cpu() for x in col.collinearity_compact_all_plain(segs, masks,
+                                                             sig2)]
+    history_ms = (time.perf_counter() - t0) / reps * 1e3
+    # the work this input needs: the gate for every ordered pair of valid
+    # segments, the regate for each block's first 8 candidates
+    n = masks.sum(dim=1).double()
+    gate_pairs = int((n * (n - 1)).sum())
+    thr = k4.keep_threshold_sq(sig2)
+    blk, q = k4.block_quota(S, 8)
+    regated = sum(int(k4.collin_keep_plain(segs[v], masks[v], thr)
+                      .view(S, S // blk, blk).sum(dim=2).clamp(max=q).sum())
+                  for v in range(V))
+    C = run()[0].shape[1]
+    ops = gate_pairs * K4_OPS + regated * K4_REGATE_OPS
+    nbytes = V * S * 17 + V * C * 8 + V * 8
+    b_ms, b_by = bound_ms(ops, nbytes)
+    log(f"[kernels] K4 facade: kernel {ms:.4f} ms for all {V} views, plain "
+        f"{plain_ms:.3f} ms, history {history_ms:.3f} ms (host clock); "
+        f"bound {b_ms:.4f} ms by {b_by} ({gate_pairs} gate pairs, "
+        f"{regated} regated, {ops:.3e} ops, {nbytes} bytes), "
+        f"{b_ms / ms:.3f} of it")
+    return dict(max_abs_err=max_diff, weights_differ=n_differ, ms=ms,
+                plain_ms=plain_ms, history_ms=history_ms, bound_ms=b_ms,
+                bound_by=b_by, share_of_bound=b_ms / ms, cases=res)
 
 
 def phase_validate():
@@ -614,12 +732,14 @@ def _counted(run, tag):
     k1.LAUNCHES = k1.LAUNCHES_DENSE = k4.LAUNCHES = k6.LAUNCHES = 0
     k23.LAUNCHES = k23.LAUNCHES_WIDE = 0
     out = run()
-    counts = dict(pair_valid=k1.LAUNCHES, collin_keep=k4.LAUNCHES,
+    counts = dict(pair_valid=k1.LAUNCHES, collin_pairs=k4.LAUNCHES,
                   score=k23.LAUNCHES, score_wide=k23.LAUNCHES_WIDE,
                   pair_dense=k1.LAUNCHES_DENSE, fma_peak=k6.LAUNCHES)
-    require(counts["pair_valid"] > 0 and counts["collin_keep"] > 0
+    require(counts["pair_valid"] > 0 and counts["collin_pairs"] > 0
             and counts["score_wide"] > 0,
             f"{tag}: a kernel of the path was not launched")
+    require(counts["collin_pairs"] == 1,
+            f"{tag}: K4 ran {counts['collin_pairs']} times in one model")
     log(f"[{tag}] launches in the run: {counts}")
     return out, counts
 
@@ -683,6 +803,8 @@ def _facade_runs(cfg, scene, cams, n_warm, tag, profile=False):
         log(f"[{tag}] warm run {i + 1}: {t:.3f} s ({stages(l3d.stats)})")
     st = l3d.stats
     require(st["match_overflow"] == 0, f"{tag}: overflow is not 0")
+    require(st["collinearity_overflow"] == 0,
+            f"{tag}: collinearity overflow is not 0")
     require(st["num_lines"] > 0, f"{tag}: no lines")
     if profile:
         _profile(run, tag)
@@ -985,12 +1107,12 @@ def main() -> int:
              replaces="line3d_tpu/match/pairwise_pallas.py:216",
              launches=cnt["pair_valid"], library_ms=None,
              launches_per_facade_run=cnt["pair_valid"], **k["pair_valid"]),
-        dict(name="collin_keep (K4)", route="cuda",
-             source="line3d_tpu_torch/csrc/collin_keep.cu",
+        dict(name="collin_pairs (K4)", route="cuda",
+             source="line3d_tpu_torch/csrc/collin_pairs.cu",
              replaces="line3d_tpu/match/collinearity_pallas.py:35",
-             launches=cnt["collin_keep"], library_ms=None,
-             launches_per_facade_run=cnt["collin_keep"],
-             **k["collin_keep"]),
+             launches=cnt["collin_pairs"], library_ms=None,
+             launches_per_facade_run=cnt["collin_pairs"],
+             **k["collin_pairs"]),
         dict(name="score (K2/K3)", route="cuda",
              source="line3d_tpu_torch/csrc/scoring.cu",
              replaces="line3d_tpu/match/scoring_pallas.py:239",

@@ -7,11 +7,13 @@ mutual max endpoint-to-line distance Gaussian (sigma = 2.0, commons.h:48),
 kept if > 0.5 (L3D_COLLIN_AFF_T_G) AND the segments do not overlap along
 their common direction.
 
-Per view, the keep plane comes from kernel K4 (`collinearity_cuda`), is
-compacted per 128-partner block, the affinity is recomputed and regated at
-the kept pairs (`_pair_aff`), and the pairs are merged into one flat list
-sorted by (i, j).  `apply_collinearity_exact_fallback` re-derives a view
-whose export dropped pairs from the dense matrix.
+`collinearity_compact_all` turns every view's segments into a flat pair
+list sorted by (i, j): on the card by kernel K4 (`collinearity_cuda`, one
+fused launch sequence for all views), on the CPU by its plain twin
+`collinearity_compact_all_plain` (per view: the keep plane, compaction per
+128-partner block, the affinity recomputed and regated at the kept pairs by
+`_pair_aff`, then one merge sort).  `apply_collinearity_exact_fallback`
+re-derives a view whose export dropped pairs from the dense matrix.
 """
 from __future__ import annotations
 
@@ -19,7 +21,8 @@ import numpy as np
 import torch
 
 from ..core import geometry as g
-from .collinearity_cuda import collin_keep, keep_threshold_sq
+from .collinearity_cuda import block_quota, collin_keep_plain, \
+    collin_pairs_cuda, keep_threshold_sq
 from .pairwise import compact_rows_blockq
 
 
@@ -109,15 +112,35 @@ def collinearity_compact_all(segments, masks, coll_sigma_sq, quota=8,
                              aff_threshold: float = 0.5):
     """All views' collinearity maps compacted to flat pair lists.
 
-    segments [V, S, 4] f32 and masks [V, S] bool tensors (on one device).
-    Per view: the K4 keep plane, block compaction (compact_rows_blockq), the
-    affinity recomputed at the kept pairs, and the pairs packed as i*S+j
-    keys merged by one sort into a flat [C] list.
+    segments [V, S, 4] f32 and masks [V, S] bool tensors (on one device):
+    kernel K4 for CUDA tensors, the plain twin for CPU tensors.  Each view
+    keeps, per row and block of `block_quota(S, quota)[0]` partners, the
+    first `quota` keep-plane candidates whose recomputed affinity passes
+    `aff_threshold`, as i*S+j keys in (i, j) order, cut to the first C.
 
     Returns (pairs [V, C] int32 packed i*S+j (-1 pads),
              w [V, C] f32 (0 pads),
              count [V] int64 true pre-quota keep-plane count).
     """
+    if segments.device.type == "cpu":
+        return collinearity_compact_all_plain(
+            segments, masks, coll_sigma_sq, quota=quota,
+            pairs_per_seg=pairs_per_seg, aff_threshold=aff_threshold)
+    S = segments.shape[1]
+    blk, q = block_quota(S, quota)
+    return collin_pairs_cuda(
+        segments, masks, keep_threshold_sq(coll_sigma_sq, aff_threshold),
+        float(np.float32(coll_sigma_sq)), aff_threshold, quota,
+        _pairs_cap(S, S // blk * q, pairs_per_seg))
+
+
+def collinearity_compact_all_plain(segments, masks, coll_sigma_sq, quota=8,
+                                   pairs_per_seg: int = 4,
+                                   aff_threshold: float = 0.5):
+    """`collinearity_compact_all` in plain PyTorch, K4's twin: per view the
+    keep plane, block compaction (compact_rows_blockq), the affinity
+    recomputed at the kept pairs, and the pairs packed as i*S+j keys merged
+    by one sort into a flat [C] list."""
     V, S, _ = segments.shape
     dev = segments.device
     thr_sq = keep_threshold_sq(coll_sigma_sq, aff_threshold)
@@ -125,7 +148,7 @@ def collinearity_compact_all(segments, masks, coll_sigma_sq, quota=8,
     tgts, ws, counts = [], [], []
     for v in range(V):
         segs, mask = segments[v], masks[v]
-        keep = collin_keep(segs, mask, thr_sq)
+        keep = collin_keep_plain(segs, mask, thr_sq)
         tgt, kept, n_valid = compact_rows_blockq(keep, quota)
         sj = segs[tgt.clamp_min(0).long()]          # [S, K, 4]
         row = torch.arange(S, dtype=torch.int32, device=dev)[:, None]

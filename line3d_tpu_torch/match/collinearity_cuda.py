@@ -1,13 +1,17 @@
-"""Kernel K4: the collinearity keep plane of one view.
+"""Kernel K4: every view's collinear pairs in one fused launch sequence.
 
-`collin_keep` launches the CUDA kernel `csrc/collin_keep.cu` (replacing
-`line3d_tpu/match/collinearity_pallas.py:_kernel`) for CUDA tensors and runs
-`collin_keep_plain`, the plain PyTorch twin, for CPU tensors.  There is no
-fallback: a CUDA tensor either goes through the kernel or raises.
+`collin_pairs_cuda` launches `csrc/collin_pairs.cu` (replacing
+`line3d_tpu/match/collinearity_pallas.py:_kernel` and the device work of
+`collinearity_compact_all` around it) for CUDA tensors; it raises on
+anything else.  Its plain PyTorch twin is
+`collinearity.collinearity_compact_all_plain`, built on `collin_keep_plain`
+below, and `collinearity.collinearity_compact_all` picks one of the two by
+the tensors' device.  There is no fallback.
 
 Both gate on squared distances with a relative widening of 1e-4, so the
-plane is a superset of `collinearity.collinearity_matrix(...) > 0`; the
-affinity is recomputed and regated at the compacted pairs.
+keep plane is a superset of `collinearity.collinearity_matrix(...) > 0`; the
+affinity is recomputed and regated at each block's first `quota`
+candidates.
 """
 from __future__ import annotations
 
@@ -15,12 +19,13 @@ import numpy as np
 import torch
 
 from ..native import cuda
+from .pairwise import block_size
 
 EPS = 1e-12
 # relative widening of the squared-distance gate (collinearity_pallas.py:32)
 MARGIN = 1e-4
 
-# launches of the CUDA kernel in this process
+# calls of the fused kernel sequence in this process
 LAUNCHES = 0
 
 
@@ -31,6 +36,13 @@ def keep_threshold_sq(coll_sigma_sq, aff_threshold: float = 0.5) -> float:
     neg_ln_t = f32(-np.log(aff_threshold))
     return float(f32(f32(f32(2.0) * f32(coll_sigma_sq)) * neg_ln_t)
                  * f32(1.0 + MARGIN))
+
+
+def block_quota(S: int, quota: int):
+    """(blk, q): `pairwise.compact_rows_blockq`'s partner block and
+    per-block quota min(quota, blk)."""
+    blk = block_size(S)
+    return blk, min(max(quota, 0), blk)
 
 
 def collin_keep_plain(segs, mask, thr_sq: float):
@@ -71,25 +83,35 @@ def collin_keep_plain(segs, mask, thr_sq: float):
     return close & no_overlap & mask[:, None] & mask[None, :] & ~eye
 
 
-def collin_keep_cuda(segs, mask, thr_sq: float):
-    """Keep plane [S, S] bool from the CUDA kernel (one launch)."""
+def collin_pairs_cuda(segments, masks, thr_sq: float, coll_sigma_sq: float,
+                      aff_threshold: float, quota: int, cap: int):
+    """All views' pair lists from the fused kernel (pass 1 and pass 2 on
+    the current stream; no host synchronisation).
+
+    segments [V, S, 4] f32, masks [V, S] bool on one CUDA device; `quota`
+    per block of `block_quota(S, .)[0]` partners, `cap` slots per view.
+    Returns (pairs [V, cap] int32 keys i*S+j (-1 pads), w [V, cap] f32 (0
+    pads), count [V] int64 candidates before the quota)."""
     global LAUNCHES
-    S = segs.shape[0]
-    if segs.shape != (S, 4) or mask.shape != (S,):
-        raise ValueError("collin_keep: inconsistent shapes")
-    cuda.require_cuda("collin_keep", segs, mask,
+    V, S = masks.shape
+    if segments.shape != (V, S, 4):
+        raise ValueError("collin_pairs: inconsistent shapes")
+    if S == 0 or S * S >= 2 ** 31:
+        raise ValueError(f"collin_pairs: S = {S} outside 1..46340 (keys "
+                         "i*S+j are int32)")
+    blk, q = block_quota(S, quota)
+    cuda.require_cuda("collin_pairs", segments, masks,
                       dtypes=[torch.float32, torch.bool])
-    out = torch.empty((S, S), dtype=torch.bool, device=segs.device)
-    rc = cuda.lib().l3d_collin_keep(segs.data_ptr(), mask.data_ptr(),
-                                    float(thr_sq), S, out.data_ptr(),
-                                    cuda.stream_of(segs))
-    cuda.check(rc, "l3d_collin_keep")
+    dev = segments.device
+    scratch = torch.empty((4, V, S), dtype=torch.int32, device=dev)
+    pairs = torch.empty((V, cap), dtype=torch.int32, device=dev)
+    w = torch.empty((V, cap), dtype=torch.float32, device=dev)
+    count = torch.empty(V, dtype=torch.int64, device=dev)
+    rc = cuda.lib().l3d_collin_pairs(
+        segments.data_ptr(), masks.data_ptr(), V, S, blk, q, float(thr_sq),
+        float(np.float32(2.0 * coll_sigma_sq)), float(aff_threshold), cap,
+        scratch.data_ptr(), pairs.data_ptr(), w.data_ptr(),
+        count.data_ptr(), cuda.stream_of(segments))
+    cuda.check(rc, "l3d_collin_pairs")
     LAUNCHES += 1
-    return out
-
-
-def collin_keep(segs, mask, thr_sq: float):
-    """Keep plane [S, S]: the kernel on CUDA, the plain twin on the CPU."""
-    if segs.device.type == "cpu":
-        return collin_keep_plain(segs, mask, thr_sq)
-    return collin_keep_cuda(segs, mask, thr_sq)
+    return pairs, w, count

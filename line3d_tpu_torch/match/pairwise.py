@@ -189,6 +189,14 @@ def match_pair_dense(segs_src, segs_tgt, mask_src, mask_tgt,
     return (d_p1, d_p2, d_q1, d_q2), valid
 
 
+def block_size(n: int) -> int:
+    """The compaction's target block: 128, halved until it divides n."""
+    blk = 128
+    while n % blk:
+        blk //= 2
+    return blk
+
+
 def compact_rows_blockq(valid, quota: int, min_capacity: int = 0):
     """Key-only per-128-block compaction (ascending target index).
 
@@ -201,9 +209,7 @@ def compact_rows_blockq(valid, quota: int, min_capacity: int = 0):
              kept [Ss, (St/blk)*quota] bool, n_valid [Ss] int32).
     """
     Ss, St = valid.shape
-    blk = 128
-    while St % blk:
-        blk //= 2
+    blk = block_size(St)
     B = St // blk
     quota = max(quota, -(-min_capacity // B))
     quota = min(quota, blk)

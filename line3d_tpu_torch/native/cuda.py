@@ -45,7 +45,7 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "l3d_pair_valid": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
     "l3d_pair_dense": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
-    "l3d_collin_keep": [_P, _P, _F, _I, _P, _P],
+    "l3d_collin_pairs": [_P, _P] + [_I] * 4 + [_F] * 3 + [_I] + [_P] * 5,
     "l3d_score": [_P] * 8 + [_F] * 4 + [_I] * 3 + [_P, _P, _I, _P],
     "l3d_score_scratch_bytes": [_I, _I, _I, _I],
     "l3d_fma_peak": [_P, _F, _F, _I, _I, _P, _P],

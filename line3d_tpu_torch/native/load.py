@@ -1,11 +1,12 @@
 """ctypes loader + on-demand builder for the native host library.
 
 The sequential host stages (the native affinity enumeration and finalize,
-F-H union-find, the line-fit event sweep) run in C++.  The sources are
-`line3d_tpu/native/fh_cluster.cpp` and `affinity_enum.cpp`, read by file
-path (the port never imports `line3d_tpu`) and built with g++ into the
-port's own `_build/` directory on first use.  There is no fallback: a
-failed build or load raises, so the host stages always run this code.
+F-H union-find, the line-fit event sweep) run in C++.  The sources are the
+port's own copies, `fh_cluster.cpp` and `affinity_enum.cpp` beside this
+module (byte for byte those of the JAX package, which the port never
+reads), built with one g++ call into the port's `_build/` directory on
+first use.  There is no fallback: a failed build or load raises, so the
+host stages always run this code.
 """
 from __future__ import annotations
 
@@ -17,10 +18,10 @@ import time
 
 import numpy as np
 
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SRC_DIR = os.path.join(os.path.dirname(_PKG), "line3d_tpu", "native")
-_SRCS = [os.path.join(_SRC_DIR, "fh_cluster.cpp"),
-         os.path.join(_SRC_DIR, "affinity_enum.cpp")]
+_HERE = os.path.dirname(os.path.abspath(__file__))
+_PKG = os.path.dirname(_HERE)
+SOURCES = [os.path.join(_HERE, "fh_cluster.cpp"),
+           os.path.join(_HERE, "affinity_enum.cpp")]
 _LIB_PATH = os.path.join(_PKG, "_build", "libline3d_native.so")
 
 _lock = threading.Lock()
@@ -31,19 +32,19 @@ def build(force: bool = False) -> float:
     """Compile the native library unless a binary at least as new as its
     sources exists (or `force`).  Returns the seconds spent compiling;
     raises when g++ is missing or fails."""
-    missing = [s for s in _SRCS if not os.path.exists(s)]
+    missing = [s for s in SOURCES if not os.path.exists(s)]
     if missing:
         raise RuntimeError(f"native sources not found: {missing}")
     if os.path.exists(_LIB_PATH) and not force and \
             os.path.getmtime(_LIB_PATH) >= max(os.path.getmtime(s)
-                                               for s in _SRCS):
+                                               for s in SOURCES):
         return 0.0
     os.makedirs(os.path.dirname(_LIB_PATH), exist_ok=True)
     tmp = f"{_LIB_PATH}.{os.getpid()}.tmp"
     t0 = time.perf_counter()
     r = subprocess.run(
         ["g++", "-O3", "-march=native", "-shared", "-fPIC", "-fopenmp",
-         "-o", tmp] + _SRCS, capture_output=True, text=True)
+         "-o", tmp] + SOURCES, capture_output=True, text=True)
     if r.returncode:
         raise RuntimeError(f"g++ failed building the native library:\n"
                            f"{r.stderr}")

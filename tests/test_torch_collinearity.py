@@ -2,11 +2,12 @@
 line3d_tpu.match.collinearity.
 
 The keep plane must be a superset of `collinearity_matrix > 0` (tight:
-margin extras only); the finalized CollinMaps must hold the same pairs.
-Weights: atol 1e-4.  The point-to-line numerator a*x + b*y + c cancels
-terms of ~1e4 px^2 down to ~1 px^2, and XLA's CPU backend fuses it into
-multiply-adds while PyTorch rounds each product, so the distance differs by
-ulps of the terms (~1e-3 px) and exp(-d^2 / 2 sigma^2) by up to ~1e-4."""
+margin extras only); the compacted pair lists and the finalized CollinMaps
+must hold the same pairs and counts.  Weights: atol 1e-4.  The
+point-to-line numerator a*x + b*y + c cancels terms of ~1e4 px^2 down to
+~1 px^2, and XLA's CPU backend fuses it into multiply-adds while PyTorch
+rounds each product, so the distance differs by ulps of the terms (~1e-3
+px) and exp(-d^2 / 2 sigma^2) by up to ~1e-4."""
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -53,7 +54,7 @@ def test_keep_plane_is_tight_superset(seed):
     dense = N(jc.collinearity_matrix(jnp.asarray(segs), jnp.asarray(mask),
                                      SIG2)) > 0.0
     thr = collinearity_cuda.keep_threshold_sq(SIG2)
-    keep = N(collinearity_cuda.collin_keep(T(segs), T(mask), thr))
+    keep = N(collinearity_cuda.collin_keep_plain(T(segs), T(mask), thr))
     assert dense.sum() > 20
     assert (dense & ~keep).sum() == 0
     assert (keep & ~dense).sum() <= max(2, int(0.001 * dense.sum()))
@@ -122,8 +123,71 @@ def test_exact_fallback_repairs_dropped_views():
 
 
 def test_collin_keep_dispatch_cpu_uses_plain_twin():
-    segs, mask = _families()
+    """On CPU tensors the dispatcher runs the plain twin and launches
+    nothing."""
+    segs, mask = _scene_inputs("families")
     before = collinearity_cuda.LAUNCHES
-    out = collinearity_cuda.collin_keep(T(segs), T(mask), 1.0)
+    got = tc.collinearity_compact_all(T(segs), T(mask), SIG2)
     assert collinearity_cuda.LAUNCHES == before
-    assert out.dtype == torch.bool and out.shape == (128, 128)
+    want = tc.collinearity_compact_all_plain(T(segs), T(mask), SIG2)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert got[0].dtype == torch.int32 and got[2].dtype == torch.int64
+    assert got[0].shape == (3, 1024) and int((got[0] >= 0).sum()) > 0
+
+
+def _chain(n=512):
+    """One chain of n collinear, non-overlapping segments along the
+    diagonal, every other one 1 px higher: every pair is collinear, so each
+    row fills its quota in every 128-partner block and the survivors
+    (n * 32) exceed the cap max(8192, 4 * n).  Integer endpoints below 2^12
+    keep every product of the distance numerators exact, so XLA's fused
+    multiply-adds and PyTorch's separate products agree on them."""
+    t = np.arange(n) * 6 + 10
+    up = np.arange(n) % 2
+    segs = np.stack([t, t + up, t + 4, t + 4 + up], axis=1)
+    return segs[None].astype(np.float32), np.ones((1, n), bool)
+
+
+def _compact_case(case):
+    if case == "S100_masked":
+        # S = 100 (blocks of 4 partners) and one fully masked view
+        segs, mask = _scene_inputs("families")
+        segs, mask = segs[:, :100].copy(), mask[:, :100].copy()
+        mask[1] = False
+        return segs, mask
+    if case == "chain":
+        return _chain()
+    return _scene_inputs(case)
+
+
+@pytest.mark.parametrize("quota", [8, 1])
+@pytest.mark.parametrize("case", ["house", "families", "S100_masked",
+                                  "chain"])
+def test_compact_all_twin_matches_reference(case, quota):
+    """The plain twin's pair lists against line3d_tpu's
+    collinearity_compact_all (XLA path): equal keys and counts, weights
+    within atol 1e-4."""
+    segs, mask = _compact_case(case)
+    want = [N(x) for x in jc.collinearity_compact_all(
+        jnp.asarray(segs), jnp.asarray(mask), SIG2, quota=quota)]
+    before = collinearity_cuda.LAUNCHES
+    got = [N(x) for x in tc.collinearity_compact_all(T(segs), T(mask), SIG2,
+                                                     quota=quota)]
+    assert collinearity_cuda.LAUNCHES == before
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[2], want[2])
+    np.testing.assert_allclose(got[1], want[1], rtol=0, atol=1e-4)
+    n_pairs = int((got[0] >= 0).sum())
+    if case == "house":
+        assert n_pairs == 0
+    elif case == "S100_masked":
+        assert got[2][1] == 0 and (got[0][1] == -1).all()
+        assert (got[1][1] == 0).all() and n_pairs > 0
+    elif case == "chain":
+        C = got[0].shape[1]
+        if quota == 8:
+            assert C == 8192 and n_pairs == C      # the cap bites
+        assert got[2][0] == 512 * 511
+        # the first C survivors in (i, j) order
+        assert (np.diff(got[0][0][got[0][0] >= 0]) > 0).all()

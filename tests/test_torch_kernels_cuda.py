@@ -7,9 +7,9 @@ Run them on the card with
 use).
 Tolerances: K1 and K5 at most 4e-4 of the valid pairs may disagree with
 the twin, and K1's plane equals K5's valid plane pair for pair; K5's
-depths rtol 1e-3 / atol 1e-4 on the pairs valid in both; K4 a superset of
-the dense plane with at most margin extras; scoring rtol 2e-3 / atol 2e-4,
-where fewer than 1e-4 of the scored slots may differ by a support whose
+depths rtol 1e-3 / atol 1e-4 on the pairs valid in both; K4's pair lists
+and counts identical to its plain twin's and its weights bit-equal;
+scoring rtol 2e-3 / atol 2e-4, where fewer than 1e-4 of the scored slots may differ by a support whose
 confidence sits at the threshold, at widths that fit a block's shared
 memory and at M = 4096, which does not; K6 chain sums within
 peak.CHAIN_RTOL of the twin's.  Device diffusion: tests/test_cluster.py's
@@ -104,7 +104,46 @@ def test_pair_valid_equals_pair_dense_valid(dev, case):
     assert int(stats[1]) * 32 >= int(stats[0])
 
 
+def _check_collin_pairs(segments, masks, quota=8, sig2=4.0):
+    """K4 against its plain twin on the card: identical keys and counts,
+    bit-equal weights; returns the kernel's result."""
+    n0 = k4.LAUNCHES
+    got = col.collinearity_compact_all(segments, masks, np.float32(sig2),
+                                       quota=quota)
+    assert k4.LAUNCHES == n0 + 1
+    want = col.collinearity_compact_all_plain(segments, masks,
+                                              np.float32(sig2), quota=quota)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(got[2], want[2])
+    differ = int((got[1] != want[1]).sum())
+    assert differ == 0, (differ, float((got[1] - want[1]).abs().max()))
+    return got
+
+
+def _segments_with_runs(rng, V, S, n_chains, extent=(1920.0, 1440.0)):
+    """V views of S random segments, the first n_chains * 8 of them in
+    chains of 8 nearly collinear pieces; [V, S, 4] f32, [V, S] bool."""
+    segs = np.empty((V, S, 4), np.float32)
+    for v in range(V):
+        segs[v] = rng.uniform(0, 1, (S, 4)) * np.tile(extent, 2)
+        for c in range(n_chains):
+            x0, y0 = rng.uniform(0, 1, 2) * extent
+            th = rng.uniform(0, np.pi)
+            d = np.array([np.cos(th), np.sin(th)])
+            t = np.cumsum(rng.uniform(15, 40, 16))
+            for k in range(8):
+                a = np.array([x0, y0]) + t[2 * k] * d
+                b = np.array([x0, y0]) + t[2 * k + 1] * d
+                segs[v, c * 8 + k] = np.concatenate([a, b]) + \
+                    rng.normal(0, 0.3, 4)
+    return segs, np.ones((V, S), bool)
+
+
 def test_collin_keep_kernel_matches_plain(dev):
+    """K4 on one view of S = 384 with collinear runs and masked rows."""
     rng = np.random.default_rng(3)
     segs = torch.as_tensor(rng.uniform(0, 300, (384, 4)).astype(np.float32),
                            device=dev)
@@ -113,13 +152,58 @@ def test_collin_keep_kernel_matches_plain(dev):
                                            device=dev)
     mask = torch.ones(384, dtype=torch.bool, device=dev)
     mask[-5:] = False
-    thr = k4.keep_threshold_sq(4.0)
-    got = k4.collin_keep(segs, mask, thr)
-    want = k4.collin_keep_plain(segs, mask, thr)
+    pairs, _, count = _check_collin_pairs(segs[None].contiguous(),
+                                          mask[None].contiguous())
     dense = col.collinearity_matrix(segs, mask, 4.0) > 0
-    assert dense.sum() > 20
-    assert not (dense & ~got).any()
-    assert int((got != want).sum()) <= max(2, int(1e-3 * int(dense.sum())))
+    assert int(dense.sum()) > 20 and int(count[0]) >= int(dense.sum())
+    assert int((pairs >= 0).sum()) > 20
+
+
+@pytest.mark.parametrize("quota", [8, 1])
+def test_collin_pairs_facade(dev, quota):
+    """All 25 facade views; with quota 1 views drop pairs, and the exact
+    fallback repairs them from the card's counts as from the twin's."""
+    from line3d_tpu_torch.utils.demo import make_facade_scene
+    scene, _ = make_facade_scene(num_views=25, device=dev)
+    pairs, w, count = _check_collin_pairs(scene.segments_t,
+                                          scene.seg_mask_t, quota=quota)
+    maps = col.collinearity_finalize(pairs.cpu().numpy(), w.cpu().numpy(),
+                                     count.cpu().numpy(), scene.max_segments)
+    assert (maps.dropped_total > 0) == (quota == 1)
+    if quota == 1:
+        fixed, n = col.apply_collinearity_exact_fallback(
+            maps, scene.segments_t, scene.seg_mask_t, 2.0)
+        assert n > 0 and fixed.dropped_total == 0
+
+
+def test_collin_pairs_cap_bites(dev):
+    """The 512-segment chain of tests/test_torch_collinearity.py: 16,384
+    survivors, the first 8,192 kept."""
+    t = np.arange(512) * 6 + 10
+    up = np.arange(512) % 2
+    segs = np.stack([t, t + up, t + 4, t + 4 + up], 1)[None]
+    segs = torch.as_tensor(segs.astype(np.float32), device=dev)
+    pairs, _, count = _check_collin_pairs(
+        segs, torch.ones((1, 512), dtype=torch.bool, device=dev))
+    assert pairs.shape == (1, 8192) and bool((pairs >= 0).all())
+    assert int(count[0]) == 512 * 511
+
+
+@pytest.mark.parametrize("S,V,masked", [(100, 3, True), (2990, 2, False)])
+def test_collin_pairs_ragged_sizes(dev, S, V, masked):
+    """S = 100 (blocks of 4 partners) with a fully masked view, and the P25
+    stress scene's S = 2,990 (blocks of 2; three tiles of partners)."""
+    rng = np.random.default_rng(S)
+    segs, mask = _segments_with_runs(rng, V, S, n_chains=min(S // 16, 40))
+    if masked:
+        mask[1] = False
+        mask[0, ::7] = False
+    pairs, w, count = _check_collin_pairs(torch.as_tensor(segs, device=dev),
+                                          torch.as_tensor(mask, device=dev))
+    assert int((pairs >= 0).sum()) > 0
+    if masked:
+        assert int(count[1]) == 0 and bool((pairs[1] == -1).all())
+        assert bool((w[1] == 0).all())
 
 
 def _score_inputs(dev, S, M, Nc, St, seed, need_rows=None, spatial_k=3.0,
@@ -223,6 +307,14 @@ def test_wrappers_reject_bad_inputs(dev):
     s = _score_inputs(dev, 4, 128, 33, 64, 1)
     with pytest.raises(ValueError, match="compiled limit"):
         k23.score(*s)
+    segs = torch.zeros((2, 8, 4), device=dev)
+    masks = torch.ones((2, 8), dtype=torch.bool, device=dev)
+    with pytest.raises(ValueError):
+        k4.collin_pairs_cuda(segs.cpu(), masks.cpu(), 1.0, 4.0, 0.5, 8, 64)
+    with pytest.raises(TypeError):
+        k4.collin_pairs_cuda(segs.double(), masks, 1.0, 4.0, 0.5, 8, 64)
+    with pytest.raises(ValueError, match="inconsistent"):
+        k4.collin_pairs_cuda(segs[:1], masks, 1.0, 4.0, 0.5, 8, 64)
     x = k6.chain_starts(64, device=dev)
     with pytest.raises(ValueError):
         k6.fma_chain_cuda(x[:, :3].contiguous(), 1)
