@@ -16,7 +16,9 @@ exits non-zero):
                the warps holding any), K4 (every view's collinear pair
                lists in one call: the 25 facade views at quota 8 and 1,
                a 512-segment chain where the cap bites, S=100 with a
-               masked view, S=2990), and the scoring kernel at M=256 and
+               masked view, S=2990, and two facade views at sigma = 3,
+               where 2 sigma^2 is no power of two), and the scoring kernel
+               at M=256 and
                M=1024 (with the dense walk's pair tests and the spatial
                gate's survivors); errors,
                CUDA-event times and each kernel's bound.
@@ -40,13 +42,34 @@ exits non-zero):
                against its twin,
                and the per-view step re-run on the CPU with the plain twins
                on the card's K1 planes, its tables, scores and best matches
-               compared with the card's.
+               compared with the card's, and the capacity-probe counters
+               held to those counted from the twin's planes.
   9. facaded   the facade with device diffusion (reference mode) and device
                line refinement: one cold and three warm runs; the diffused
                weights held to the float64 host on the same graph, the
                refined lines to the host refinement on the same clusters.
  10. facadeba  one facade run with joint camera + line bundle adjustment,
                "true"-mode device diffusion and the round-parallel F-H.
+ 11. capped    the facade's three matching modes: (a) the default (the
+               probe's one pass: nothing overflows or is re-matched, the
+               model of phase 8), (b) capacity_probe=False (the capped pass
+               at m_total=256 overflows, the fallback re-matches those
+               views, the same TXT model token for token), (c)
+               uncapped_fallback=False (the capped pass alone, with its
+               warning); and view 0's capped table scored by the kernel at
+               M=256 against the twin.
+ 12. cli       the 25 facade views rendered at 1920 x 1440 (numpy
+               rasteriser, binary PGM) with an NVM_V3 file, through
+               `cli.main(["vsfm", ...])` on the card: one stamped STL and
+               TXT, the detection's seconds and segments per view, the
+               model's median distance to the ground-truth facade lines,
+               and K1, the scoring kernel and K4 held against their twins
+               at this run's shapes (S = 3072, M = 1024 and 2048; the
+               scoring kernel also against its twin in float64);
+               a second run from the 25 segment caches (the same TXT byte
+               for byte); a third as `python -m line3d_tpu_torch.cli vsfm
+               ... --profile_dir` in a process of its own, whose trace must
+               name the three kernels.
 
 Each path's kernel launch counts are set to 0 just before it is driven and
 read just after.  The line before last is the card as `nvidia-smi` reports
@@ -464,6 +487,10 @@ def phase_k4(scene):
         res[name] = dict(pairs=int((g[0] >= 0).sum()), count=int(g[2].sum()),
                          weights_differ=int(differ.sum()), max_abs_err=diff)
 
+    res["sigma 3"] = _k4_sigma3(scene)
+    n_differ += res["sigma 3"]["weights_differ"]
+    max_diff = max(max_diff, res["sigma 3"]["max_abs_err"])
+
     segs, masks = scene.segments_t, scene.seg_mask_t
     V, S = masks.shape
     run = lambda: col.collinearity_compact_all(segs, masks, sig2)  # noqa
@@ -499,6 +526,49 @@ def phase_k4(scene):
     return dict(max_abs_err=max_diff, weights_differ=n_differ, ms=ms,
                 plain_ms=plain_ms, history_ms=history_ms, bound_ms=b_ms,
                 bound_by=b_by, share_of_bound=b_ms / ms, cases=res)
+
+
+def _k4_sigma3(scene):
+    """K4 against its twin at collinearity_sigma = 3 (2 sigma^2 = 18, no
+    power of two) on facade views 0 and 12.  The kernel divides -d^2 by
+    2 sigma^2, and so does the twin, by a tensor.  As history, the twin is
+    also run dividing by a Python number, which PyTorch's CUDA backend
+    turns into a multiply by the reciprocal: the weights that form parts
+    from the kernel by are counted and logged, not required."""
+    import torch
+    from line3d_tpu_torch.match import collinearity as col
+    idx = torch.tensor([0, 12], device=scene.segments_t.device)
+    segs, masks = scene.segments_t[idx], scene.seg_mask_t[idx]
+    sig2 = np.float32(3.0 ** 2)
+    got = [x.cpu().numpy() for x in
+           col.collinearity_compact_all(segs, masks, sig2)]
+    want = [x.cpu().numpy() for x in
+            col.collinearity_compact_all_plain(segs, masks, sig2)]
+    tensor_form = col._two_sigma_sq
+    try:
+        col._two_sigma_sq = lambda s2, like: 2.0 * float(s2)
+        old = [x.cpu().numpy() for x in
+               col.collinearity_compact_all_plain(segs, masks, sig2)]
+    finally:
+        col._two_sigma_sq = tensor_form
+    n_pairs = int((got[0] >= 0).sum())
+    differ = int((got[1] != want[1]).sum())
+    diff = float(np.abs(got[1] - want[1]).max())
+    same_keys = np.array_equal(got[0], old[0])
+    differ_old = int((got[1] != old[1]).sum()) if same_keys else -1
+    log(f"[kernels] K4 sigma 3, views 0 and 12: {n_pairs} pairs, keys equal "
+        f"{np.array_equal(got[0], want[0])}, counts equal "
+        f"{np.array_equal(got[2], want[2])}, {differ} weights differ from "
+        f"the twin (max {diff:.3e}); history: from the twin dividing by a "
+        f"Python number {differ_old} differ (keys equal {same_keys})")
+    require(np.array_equal(got[0], want[0]) and
+            np.array_equal(got[2], want[2]),
+            "K4 sigma 3: pairs or counts differ from the twin")
+    require(n_pairs > 1000, "K4 sigma 3: too few pairs")
+    require(diff <= K4_W_ATOL, "K4 sigma 3: weights differ")
+    return dict(pairs=n_pairs, count=int(got[2].sum()),
+                weights_differ=differ, max_abs_err=diff,
+                weights_differ_scalar_divide=differ_old)
 
 
 def phase_validate():
@@ -722,10 +792,11 @@ def phase_house10d():
     log(f"[house10d] device diffusion: {l3d.stats['num_lines']} lines")
 
 
-def _counted(run, tag):
+def _counted(run, tag, wide=True):
     """run() with the model path's kernel launch counts set to 0 just
-    before; fails unless each kernel was launched.  Returns (run's result,
-    the counts just after)."""
+    before; fails unless each kernel was launched (the scoring kernel at
+    M > 256 when `wide`, at any M otherwise).  Returns (run's result, the
+    counts just after)."""
     from line3d_tpu_torch.match import pairwise_cuda as k1, \
         collinearity_cuda as k4, scoring_cuda as k23
     from line3d_tpu_torch.utils import peak as k6
@@ -736,7 +807,7 @@ def _counted(run, tag):
                   score=k23.LAUNCHES, score_wide=k23.LAUNCHES_WIDE,
                   pair_dense=k1.LAUNCHES_DENSE, fma_peak=k6.LAUNCHES)
     require(counts["pair_valid"] > 0 and counts["collin_pairs"] > 0
-            and counts["score_wide"] > 0,
+            and counts["score_wide" if wide else "score"] > 0,
             f"{tag}: a kernel of the path was not launched")
     require(counts["collin_pairs"] == 1,
             f"{tag}: K4 ran {counts['collin_pairs']} times in one model")
@@ -905,8 +976,482 @@ def phase_facade_ba(card):
     return dict(seconds=t, stats=st)
 
 
+def phase_capped(card, facade_txt):
+    """The facade's three matching modes on the card (phase 11 of the
+    module docstring)."""
+    import contextlib as ctxlib
+    import io
+    import torch
+    from line3d_tpu_torch import Line3D, L3DConfig
+    from line3d_tpu_torch.match import engine, scoring_cuda as k23
+    from line3d_tpu_torch.utils.demo import make_facade_scene
+    base = L3DConfig()
+    scene, cams = make_facade_scene(num_views=25, config=base)
+
+    def runner(cfg, sink=None):
+        def run():
+            l3d = feed(Line3D(config=cfg), scene, cams)
+            t0 = time.perf_counter()
+            with ctxlib.redirect_stdout(sink) if sink else \
+                    ctxlib.nullcontext():
+                l3d.compute_3d_model()
+            torch.cuda.synchronize()
+            return l3d, time.perf_counter() - t0
+        return run
+
+    def describe(tag, l3d, times, counts):
+        st = l3d.stats
+        log(f"[capped] {tag}: seconds {[round(t, 3) for t in times]} on "
+            f"{card} (the first after this configuration's first pass); "
+            f"{st['num_lines']} lines, t_match {st['t_match']:.3f} s, "
+            f"match_overflow {st['match_overflow']}, views_rematched_uncapped"
+            f" {st['views_rematched_uncapped']}, probe m_total/quota/k_export"
+            f" {st['probe_m_total']}/{st['probe_quota']}/"
+            f"{st['probe_k_export']}, m_total per view "
+            f"{sorted(set(st['m_total']))}; launches {counts}")
+
+    out = {}
+    # (a) the default: the probe's one pass
+    (l3d, t), counts = _counted(runner(base), "capped")
+    st = l3d.stats
+    describe("(a) default", l3d, [t], counts)
+    require(st["views_rematched_uncapped"] == 0 and
+            st["match_overflow"] == 0, "capped (a): not exact in one pass")
+    require(st["probe_m_total"] >= 512, "capped (a): probe_m_total < 512")
+    require(_txt_text(l3d) == facade_txt,
+            "capped (a): the model differs from phase facade's")
+    out["a"] = dict(seconds=[t], counts=counts, lines=st["num_lines"])
+
+    # (b) no probe: the capped pass, then the fallback
+    cfg_b = L3DConfig(capacity_probe=False)
+    runner(cfg_b)()
+    (l3d, t1), counts = _counted(runner(cfg_b), "capped")
+    _, t2 = runner(cfg_b)()
+    st = l3d.stats
+    describe("(b) capacity_probe=False", l3d, [t1, t2], counts)
+    require(st["match_overflow"] > 0 and
+            st["views_rematched_uncapped"] > 0,
+            "capped (b): the capped pass did not overflow")
+    require(counts["pair_valid"] == 25 + st["views_rematched_uncapped"],
+            "capped (b): K1 launches are not one per view and re-match")
+    require(_txt_text(l3d) == facade_txt,
+            "capped (b): the fallback's model differs from the exact one")
+    out["b"] = dict(seconds=[t1, t2], counts=counts, lines=st["num_lines"],
+                    rematched=st["views_rematched_uncapped"],
+                    overflow=st["match_overflow"])
+
+    # (c) no guard: the capped pass as it is, and the warning
+    cfg_c = L3DConfig(uncapped_fallback=False)
+    runner(cfg_c, io.StringIO())()
+    sink = io.StringIO()
+    (l3d, t1), counts = _counted(runner(cfg_c, sink), "capped", wide=False)
+    _, t2 = runner(cfg_c, io.StringIO())()
+    st = l3d.stats
+    warning = [ln for ln in sink.getvalue().splitlines() if "WARNING" in ln]
+    describe("(c) uncapped_fallback=False", l3d, [t1, t2], counts)
+    log(f"[capped] (c) printed: {warning}")
+    require(len(warning) == 1 and "gate-passing matches" in warning[0]
+            and str(st["match_overflow"]) in warning[0],
+            "capped (c): the overflow warning is missing")
+    require(st["match_overflow"] > 0 and
+            st["views_rematched_uncapped"] == 0 and st["num_lines"] > 0 and
+            set(st["m_total"]) == {256} and counts["score_wide"] == 0,
+            "capped (c): not a capped pass at m_total 256")
+    out["c"] = dict(seconds=[t1, t2], counts=counts, lines=st["num_lines"],
+                    overflow=st["match_overflow"])
+
+    # the scoring kernel on view 0's capped table (M = 256, quota 8)
+    # against its twin: the facade's data in K3's shape
+    ctx = engine.ViewContext(l3d.scene, l3d.cameras, cfg_c)
+    nb = np.asarray(l3d.neighbors[0], np.int64)
+    o = engine.match_view(ctx, 0, nb, caps=(cfg_c.match_block_quota, 256))
+    segs_nb, _, _, _, _, P_nb = ctx.neighbor_arrays(0, nb)
+    want = k23.score_plain(
+        l3d.scene.segments_t[0], ctx.RtKinv32[0], ctx.C32[0], o["cam"],
+        o["tgt"], o["depths"], o["valid"], P_nb, segs_nb,
+        float(np.float32(cfg_c.sigma_p)), float(np.float32(cfg_c.sigma_a)),
+        float(np.float32(ctx.spatial_ks[0])), cfg_c.support_threshold)
+    err = (o["conf"] - want).abs()
+    n_bad = int((err > SCORE_ATOL + SCORE_RTOL * want.abs()).sum())
+    n_scored = int((want > 0).sum())
+    log(f"[capped] view 0 capped table [{o['cam'].shape[0]}, "
+        f"{o['cam'].shape[1]}]: overflow {o['overflow']}, "
+        f"{int(o['valid'].sum())} valid slots, {n_scored} scored, max abs "
+        f"err vs the twin {float(err.max()):.3e}, {n_bad} outside rtol "
+        f"{SCORE_RTOL} / atol {SCORE_ATOL}")
+    require(o["cam"].shape[1] == 256 and o["overflow"] > 0 and
+            n_bad <= max(1, SCORE_FLIP_MAX * n_scored),
+            "capped: the scoring kernel disagrees with its twin at M=256")
+    return out
+
+
+# Phase cli holds the scoring kernel to its twins on detected segments
+# (both edges of every drawn line, sub-pixel noise), whose supports lie
+# 1-3 px off their lines, where exp(-dist^2 / 2 sigma_p^2) carries float32
+# rounding of the projections into the confidence; the synthetic facade's
+# supports lie on their lines and carry none.  Measured on an NVIDIA H100
+# 80GB HBM3 at S = 3072 (views 0, 2 and 24): against the float32 twin
+# 1.7e-4 to 8.9e-4 of the scored slots are outside the scoring tolerance;
+# against the twin in float64, with the support threshold moved by the
+# tolerance either way, 4.9e-5 to 4.5e-4 (the float32 twin itself: up to
+# 3.5e-6, its worst slot at 2.25 times the tolerance), and at most one slot
+# a view beyond three times the tolerance (a support-threshold flip).  The
+# kernel keeps the Pallas kernel's projection, affine in the depth and
+# undivided, which rounds more coarsely than the twin's projection of 3D
+# points.
+CLI_SCORE_OUTSIDE_MAX = 2e-3      # fraction of scored slots
+CLI_SCORE_FAR_MAX = 1e-5          # fraction beyond 3x the tolerance
+
+
+def _check_path_kernels(l3d, tag):
+    """The kernels of a finished Line3D run against their plain twins on
+    the card, at the shapes that run gave them: for the first view of each
+    match-slot width the run used and for the last view, K1's planes on the
+    view's N neighbors (and the probe counters the run reduced from them)
+    and the scoring kernel on the view's exact match table; then K4 on all
+    the scene's views.  K1 and K4 are held to phase `kernels`' tolerances.
+    The scoring kernel is held to its float32 twin and, as the arbiter of
+    the two, to the twin run in float64 on the same table with the support
+    threshold moved down and up by the scoring tolerance (a lower threshold
+    only adds supports, so the two runs bracket every value that supports
+    at the threshold can give a slot), with the bounds above.  The launches
+    made here come after the run's counts were read."""
+    import torch
+    from line3d_tpu_torch.match import collinearity as col, engine, \
+        pairwise, pairwise_cuda as k1, scoring as sc
+    cfg, scene = l3d.config, l3d.scene
+    ctx = engine.ViewContext(scene, l3d.cameras, cfg)
+    S = scene.max_segments
+    picked = {}
+    for vm in l3d.matches:
+        picked.setdefault(vm.m_total, vm)
+    views = {vm.view: vm for vm in picked.values()}
+    views[l3d.matches[-1].view] = l3d.matches[-1]
+    out = {}
+    for v, vm in sorted(views.items()):
+        M = vm.m_total
+        nb = np.asarray(l3d.neighbors[v], np.int64)
+        segs_nb, mask_nb, F_nb, RtKinv_nb, C_nb, P_nb = \
+            ctx.neighbor_arrays(v, nb)
+        a = (scene.segments_t[v], scene.seg_mask_t[v], segs_nb, mask_nb,
+             F_nb, ctx.RtKinv32[v], RtKinv_nb, ctx.C32[v], C_nb,
+             cfg.min_overlap_lower, cfg.min_overlap_upper)
+        got, twin = k1.pair_valid_cuda(*a), k1.pair_valid_plain(*a)
+        k1_bad, n_valid = int((got != twin).sum()), int(twin.sum())
+        N = len(nb)
+        blk = pairwise.block_size(S)
+        cnt = twin.sum(dim=2)
+        want = (int(cnt.sum(dim=0).max()), int(cnt.sum()),
+                int(twin.reshape(N, S, S // blk, blk).sum(dim=3).max()),
+                int(cnt.max()))
+        mine = (vm.need_capacity, vm.total_candidates, vm.block_max,
+                vm.nb_max)
+        log(f"[{tag}] view {v}: K1 at [{N}, {S}, {S}]: {k1_bad} of {n_valid} "
+            f"valid pairs disagree with the twin; probe counters (need, "
+            f"total, blockmax, nbmax) of the run {mine}, from the twin's "
+            f"planes {want}")
+        require(k1_bad <= PAIR_DISAGREE_MAX * n_valid,
+                f"{tag}: K1 disagrees with its plain twin at view {v}")
+        require(all(abs(g - w) <= k1_bad for g, w in zip(mine, want)),
+                f"{tag}: view {v}'s probe counters differ from the twin's")
+
+        o = engine.match_view(ctx, v, nb)
+        require(o["m_total"] == M and o["overflow"] == 0,
+                f"{tag}: view {v} was not re-matched at its run's width")
+        tcoords = pairwise.gather_target_coords(segs_nb, o["cam"], o["tgt"])
+
+        def plain(support_t, dtype):
+            f = lambda x: x.to(dtype)                       # noqa: E731
+            return sc.score_matches(
+                f(scene.segments_t[v]), None, f(ctx.RtKinv32[v]),
+                f(ctx.C32[v]), o["cam"], o["tgt"], f(o["depths"]),
+                o["valid"], f(P_nb), f(segs_nb),
+                float(np.float32(cfg.sigma_p)),
+                float(np.float32(cfg.sigma_a)),
+                float(np.float32(ctx.spatial_ks[v])),
+                support_threshold=support_t, tcoords=f(tcoords)).double()
+
+        def tol(x):
+            return SCORE_ATOL + SCORE_RTOL * x.abs()
+        thr = cfg.support_threshold
+        d = SCORE_ATOL + SCORE_RTOL * thr
+        conf = o["conf"].double()
+        t32 = plain(thr, torch.float32)
+        lo, hi = plain(thr + d, torch.float64), plain(thr - d, torch.float64)
+
+        def excess(x):
+            """How far x lies outside [lo, hi], in tolerances."""
+            return torch.maximum((lo - x) / tol(lo),
+                                 (x - hi) / tol(hi)).clamp_min(0)
+        err = (conf - t32).abs()
+        n_bad = int((err > tol(t32)).sum())
+        n_scored = int((t32 > 0).sum())
+        ex_k, ex_t = excess(conf), excess(t32)
+        n1, n3 = int((ex_k > 1).sum()), int((ex_k > 3).sum())
+        log(f"[{tag}] view {v}: scoring at [{S}, {M}]: "
+            f"{int(o['valid'].sum())} valid slots, {n_scored} scored; "
+            f"against the float32 twin max abs err {float(err.max()):.3e}, "
+            f"{n_bad} outside rtol {SCORE_RTOL} / atol {SCORE_ATOL} "
+            f"({n_bad / max(n_scored, 1):.2e} of the scored); against the "
+            f"float64 twin at support thresholds {thr} -+ {d:.1e} "
+            f"({int((hi != lo).sum())} slots move between them): {n1} "
+            f"beyond the tolerance ({n1 / max(n_scored, 1):.2e}), {n3} "
+            f"beyond 3x, worst {float(ex_k.max()):.2f}x; the float32 twin "
+            f"itself {int((ex_t > 1).sum())} beyond the tolerance, worst "
+            f"{float(ex_t.max()):.2f}x")
+        require(n_scored > 0 and
+                max(n_bad, n1) <= CLI_SCORE_OUTSIDE_MAX * n_scored and
+                n3 <= max(1, CLI_SCORE_FAR_MAX * n_scored),
+                f"{tag}: the scoring kernel disagrees at view {v}, M={M}")
+        out[f"view {v}"] = dict(
+            S=S, M=M, k1_disagree=k1_bad, score_scored=n_scored,
+            score_max_abs_err=float(err.max()), score_outside=n_bad,
+            score_outside_f64=n1, score_far_f64=n3,
+            score_worst_f64=float(ex_k.max()))
+
+    sig2 = np.float32(cfg.collinearity_sigma * cfg.collinearity_sigma)
+    kw = dict(quota=cfg.collinearity_block_quota,
+              pairs_per_seg=cfg.collinearity_pairs_per_seg,
+              aff_threshold=cfg.collinearity_aff_threshold)
+    g = [x.cpu().numpy() for x in col.collinearity_compact_all(
+        scene.segments_t, scene.seg_mask_t, sig2, **kw)]
+    w = [x.cpu().numpy() for x in col.collinearity_compact_all_plain(
+        scene.segments_t, scene.seg_mask_t, sig2, **kw)]
+    differ = int((g[1] != w[1]).sum())
+    log(f"[{tag}] K4 on the run's {scene.num_views} views x S={S}: "
+        f"{int((g[0] >= 0).sum())} pairs, candidates {int(g[2].sum())}; "
+        f"keys equal {np.array_equal(g[0], w[0])}, counts equal "
+        f"{np.array_equal(g[2], w[2])}, {differ} weights differ")
+    require(np.array_equal(g[0], w[0]) and np.array_equal(g[2], w[2]),
+            f"{tag}: K4's pairs or counts differ from the twin")
+    require(differ == 0, f"{tag}: K4's weights differ from the twin")
+    out["collin_pairs"] = dict(S=S, views=scene.num_views,
+                               pairs=int((g[0] >= 0).sum()),
+                               weights_differ=differ)
+    return out
+
+
+def rot_to_quat(R):
+    """(w, x, y, z) of a rotation matrix, the inverse of the NVM loader's
+    quat_to_R."""
+    tr = np.trace(R)
+    if tr > 0:
+        s = np.sqrt(tr + 1.0) * 2
+        return np.array([0.25 * s, (R[2, 1] - R[1, 2]) / s,
+                         (R[0, 2] - R[2, 0]) / s, (R[1, 0] - R[0, 1]) / s])
+    i = int(np.argmax(np.diag(R)))
+    j, k = (i + 1) % 3, (i + 2) % 3
+    s = np.sqrt(R[i, i] - R[j, j] - R[k, k] + 1.0) * 2
+    q = np.empty(4)
+    q[0] = (R[k, j] - R[j, k]) / s
+    q[1 + i] = 0.25 * s
+    q[1 + j] = (R[j, i] + R[i, j]) / s
+    q[1 + k] = (R[k, i] + R[i, k]) / s
+    return q
+
+
+def render_view(segs, width, height):
+    """One view's segments as dark 3 px lines on a light background with a
+    soft edge (a 1-2-1 blur in x and y): uint8 [height, width]."""
+    from line3d_tpu_torch.utils.visualize import _draw_segment
+    img = np.full((height, width), 235, np.uint8)
+    for x1, y1, x2, y2 in np.asarray(segs, np.float64):
+        _draw_segment(img, x1, y1, x2, y2, 40, 3)
+    f = np.pad(img.astype(np.float32), 1, mode="edge")
+    f = 0.25 * f[:-2] + 0.5 * f[1:-1] + 0.25 * f[2:]
+    f = 0.25 * f[:, :-2] + 0.5 * f[:, 1:-1] + 0.25 * f[:, 2:]
+    return np.rint(f).astype(np.uint8)
+
+
+def write_facade_dataset(root, scene, cams):
+    """A VisualSfM dataset of the facade scene in `root`: each view's
+    projected segments rendered to a binary PGM, and `scene.nvm` (NVM_V3 as
+    main_vsfm.cpp:121-223 parses it: name, focal, quaternion, center, no
+    distortion; one worldpoint per 3D line with its views).  Returns the
+    NVM file's path."""
+    V = scene.num_views
+    for v in range(V):
+        w, h = int(cams.width[v]), int(cams.height[v])
+        img = render_view(scene.segments[v][scene.seg_mask[v]], w, h)
+        with open(os.path.join(root, f"view_{v:03d}.pgm"), "wb") as f:
+            f.write(f"P5\n{w} {h}\n255\n".encode())
+            f.write(img.tobytes())
+    wp_views = {}
+    for v in range(V):
+        for wp in scene.wp_lists[v]:
+            wp_views.setdefault(wp, []).append(v)
+    lines = ["NVM_V3", "", f"{V}"]
+    for v in range(V):
+        lines.append(
+            f"view_{v:03d}.pgm {cams.K[v][0, 0]:.6f} "
+            + " ".join(f"{x:.12f}" for x in rot_to_quat(cams.R[v])) + " "
+            + " ".join(f"{x:.12f}" for x in cams.C[v]) + " 0.0 0")
+    lines += ["", f"{len(wp_views)}"]
+    for wp in sorted(wp_views):
+        lines.append(f"0 0 0 128 128 128 {len(wp_views[wp])}"
+                     + "".join(f" {v} 0 0.0 0.0" for v in wp_views[wp]))
+    path = os.path.join(root, "scene.nvm")
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return path
+
+
+def model_error(result, gt_lines):
+    """Median over the model's 3D segments of the mean distance of its two
+    endpoints to the nearest ground-truth segment ([L, 2, 3])."""
+    A, B = gt_lines[:, 0], gt_lines[:, 1]
+    AB = B - A
+    den = np.maximum((AB * AB).sum(axis=1), 1e-30)
+    errs = []
+    for line in result:
+        for seg in np.asarray(line.segments3d):
+            d = []
+            for P in seg:
+                t = np.clip(((P - A) * AB).sum(axis=1) / den, 0.0, 1.0)
+                d.append(np.linalg.norm(A + t[:, None] * AB - P, axis=1))
+            errs.append(float((0.5 * (d[0] + d[1])).min()))
+    return float(np.median(errs)), len(errs)
+
+
+def run_cli_dataset(root, scene, cams, gt_lines, tag, extra=()):
+    """The dataset-to-model flow of phase `cli` on one scene: write the
+    dataset, run `cli.main(["vsfm", ...])` with `extra` flags twice
+    (detecting; from the caches), then `python -m line3d_tpu_torch.cli`
+    with --profile_dir in a process of its own, and check the outputs.
+    `extra` is appended to every command line (a rehearsal at a small size
+    on the CPU passes `--device cpu`).  Returns a dict of what was
+    measured."""
+    import glob
+    from line3d_tpu_torch import cli
+    t0 = time.perf_counter()
+    nvm = write_facade_dataset(root, scene, cams)
+    t_write = time.perf_counter() - t0
+    out_dir = os.path.join(root, "Line3D")
+    argv = ["vsfm", "-i", nvm] + list(extra)
+
+    def run(more=()):
+        with spy(cli, "_finish", []) as calls:
+            t0 = time.perf_counter()
+            cli.main(argv + list(more))
+            t = time.perf_counter() - t0
+        return calls[0][0][0], t           # the Line3D, seconds
+
+    (l3d, t_first), counts = _counted(run, tag)
+    st = l3d.stats
+    n_segs = np.array([len(s) for s in l3d._segments])
+    drawn = np.asarray(scene.seg_count)
+    txts = glob.glob(os.path.join(out_dir, "line3D_result_*.txt"))
+    stls = glob.glob(os.path.join(out_dir, "line3D_result_*.stl"))
+    caches = glob.glob(os.path.join(out_dir, "L3D_data", "segments_*.npz"))
+    V = scene.num_views
+    log(f"[{tag}] dataset written in {t_write:.2f} s; first run "
+        f"{t_first:.2f} s: t_detect {st['t_detect']:.3f} s for {V} images "
+        f"of {int(cams.width[0])} x {int(cams.height[0])} "
+        f"({st['t_detect'] / V * 1e3:.1f} ms per image by wall clock, "
+        f"{min(os.cpu_count() or 1, 8)} workers x "
+        f"{max(1, (os.cpu_count() or 1) // min(os.cpu_count() or 1, 8))} "
+        f"native threads on {os.cpu_count()} cores), segments per view "
+        f"min/median/max {n_segs.min()}/{int(np.median(n_segs))}/"
+        f"{n_segs.max()} (drawn {drawn.min()}-{drawn.max()}), S "
+        f"{l3d.scene.max_segments}, t_match {st['t_match']:.3f} s, "
+        f"t_cluster {st['t_cluster']:.3f} s, {st['num_lines']} lines, "
+        f"m_total {sorted(set(st['m_total']))}, probe m_total "
+        f"{st['probe_m_total']}, overflow {st['match_overflow']}")
+    require(len(txts) == 1 and len(stls) == 1 and len(caches) == V,
+            f"{tag}: expected one TXT, one STL and {V} caches")
+    require(os.path.basename(txts[0]).startswith("line3D_result__W_")
+            and "__COLLIN__NO_DIFFUSION" in txts[0],
+            f"{tag}: the result name is not stamped")
+    require(l3d.device.type == "cuda", f"{tag}: the CLI did not take the card")
+    require(st["num_lines"] > 0 and st["match_overflow"] == 0 and
+            st["t_detect"] > 0, f"{tag}: no model")
+    err, n3d = model_error(l3d.get_result(), gt_lines)
+    log(f"[{tag}] {n3d} 3D segments, median distance to the ground-truth "
+        f"lines {err:.5f}")
+    with open(txts[0], "rb") as f:
+        first = f.read()
+    t0 = time.perf_counter()
+    held = _check_path_kernels(l3d, tag)
+    log(f"[{tag}] kernels held against their twins at this run's shapes in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    l3d2, t_second = run()
+    with open(txts[0], "rb") as f:
+        second = f.read()
+    log(f"[{tag}] second run {t_second:.2f} s from the {V} caches: t_detect "
+        f"{l3d2.stats['t_detect']:.3f} s, TXT equal byte for byte "
+        f"{first == second} ({len(first)} bytes)")
+    require(first == second, f"{tag}: the cached run wrote another model")
+    require(l3d2.stats["t_detect"] < 0.5 * st["t_detect"],
+            f"{tag}: the cached run detected again")
+
+    # The profiled run is a process of its own, as a user starts the CLI:
+    # the first torch.profiler trace a process takes records every device
+    # event, but later traces of one process were seen to drop their first
+    # device events, K4's two passes among them (NVIDIA H100 80GB HBM3,
+    # torch 2.11: kept in the first trace of 8 of 8 processes, lost in most
+    # traces after a process's sixth).
+    prof = os.path.join(root, "profile")
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "line3d_tpu_torch.cli"] + argv
+        + ["--profile_dir", prof], cwd=here, capture_output=True, text=True)
+    t_third = time.perf_counter() - t0
+    for ln in r.stdout.splitlines():
+        log(f"[{tag}]   {ln}")
+    require(r.returncode == 0, f"{tag}: python -m line3d_tpu_torch.cli "
+            f"failed:\n{r.stderr[-2000:]}")
+    with open(txts[0], "rb") as f:
+        require(f.read() == first, f"{tag}: the profiled run in its own "
+                "process wrote another model")
+    with open(os.path.join(prof, "line3d_trace.json")) as f:
+        trace = f.read()
+    seen = {k: trace.count(k) for k in ("pair_kernel", "score_kernel",
+                                        "collin_pairs_kernel")}
+    log(f"[{tag}] python -m line3d_tpu_torch.cli ... --profile_dir in "
+        f"{t_third:.1f} s: the same TXT, trace {len(trace)} bytes, kernel "
+        f"names in it: {seen}")
+    return dict(t_detect=st["t_detect"], t_match=st["t_match"],
+                t_first=t_first, t_second=t_second, lines=st["num_lines"],
+                err=err, counts=counts, trace_names=seen, held=held,
+                segs=(int(n_segs.min()), int(np.median(n_segs)),
+                      int(n_segs.max())))
+
+
+# the bound on phase cli's median distance of the model's 3D segments to
+# the ground-truth facade lines (the facade spans 12 x 10 units, windows of
+# ~0.6); measured 0.018 on an NVIDIA H100 80GB HBM3
+CLI_MEDIAN_ERR_MAX = 0.05
+
+
+def phase_cli(card):
+    """Images on disk to a 3D line model through the port's `vsfm` entry
+    point on the card (phase 12 of the module docstring)."""
+    from line3d_tpu_torch.utils.demo import facade_lines, make_facade_scene
+    scene, cams = make_facade_scene(num_views=25, device="cpu")
+    gt = facade_lines(n_cols=12, n_rows=10, seed=11)
+    with tempfile.TemporaryDirectory() as root:
+        r = run_cli_dataset(root, scene, cams, gt, "cli")
+    require(r["err"] < CLI_MEDIAN_ERR_MAX,
+            f"cli: median distance to the ground truth {r['err']}")
+    require(all(n > 0 for n in r["trace_names"].values()),
+            "cli: the profiler trace does not name the kernels")
+    log(f"[cli] on {card}")
+    return r
+
+
 def _txt_model(l3d, path):
     l3d.save_3d_lines_as_txt(l3d.get_result(), path)
+
+
+def _txt_text(l3d) -> str:
+    """The model as its TXT file's text."""
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "model.txt")
+        _txt_model(l3d, path)
+        with open(path) as f:
+            return f.read()
 
 
 def phase_house10():
@@ -965,7 +1510,8 @@ def phase_facade(card):
         t0 = time.perf_counter()
         _check_view_on_cpu(l3d, ctx_g, ctx_c, v)
         log(f"[facade] view {v}: CPU check {time.perf_counter() - t0:.1f} s")
-    return dict(warm=warm, best=best_s, counts=counts, stats=st)
+    return dict(warm=warm, best=best_s, counts=counts, stats=st,
+                txt=_txt_text(l3d))
 
 
 def _check_view_on_cpu(l3d, ctx_g, ctx_c, v):
@@ -978,7 +1524,7 @@ def _check_view_on_cpu(l3d, ctx_g, ctx_c, v):
     where the scoring kernel and its twin part by more than the tolerance
     (a support at the threshold), of which at most SCORE_FLIP_MAX of the
     scored slots are allowed."""
-    from line3d_tpu_torch.match import engine, pairwise_cuda as k1
+    from line3d_tpu_torch.match import engine, pairwise, pairwise_cuda as k1
     nb = np.asarray(l3d.neighbors[v], np.int64)
     planes = {}
 
@@ -1007,6 +1553,21 @@ def _check_view_on_cpu(l3d, ctx_g, ctx_c, v):
         f"with the twin")
     require(k1_bad <= PAIR_DISAGREE_MAX * n_valid,
             f"view {v}: K1 disagrees with its plain twin")
+    # the capacity-probe counters the pipeline run reduced on the card from
+    # K1's planes, against the same reductions of the twin's planes on the
+    # CPU: each may differ by at most the pairs K1 and the twin part on
+    N, S = twin.shape[0], twin.shape[1]
+    blk = pairwise.block_size(S)
+    cnt = twin.sum(dim=2)
+    want = (int(cnt.sum(dim=0).max()), int(cnt.sum()),
+            int(twin.reshape(N, S, S // blk, blk).sum(dim=3).max()),
+            int(cnt.max()))
+    vm = next(m for m in l3d.matches if m.view == v)
+    got = (vm.need_capacity, vm.total_candidates, vm.block_max, vm.nb_max)
+    log(f"[facade] view {v}: probe counters (need, total, blockmax, nbmax) "
+        f"on the card {got}, from the twin's planes on the CPU {want}")
+    require(all(abs(g - w) <= k1_bad for g, w in zip(got, want)),
+            f"view {v}: probe counters differ from the twin's")
 
     for k in ("cam", "tgt", "valid"):
         require(np.array_equal(rg[k], rc[k]), f"view {v}: {k} tables differ")
@@ -1090,6 +1651,8 @@ def main() -> int:
     fa = timed("facade", phase_facade, card)
     fd = timed("facaded", phase_facade_diffusion_refine, card)
     timed("facadeba", phase_facade_ba, card)
+    cp = timed("capped", phase_capped, card, fa["txt"])
+    cl = timed("cli", phase_cli, card)
     require("jax" not in sys.modules and "line3d_tpu" not in sys.modules,
             "JAX or line3d_tpu was imported")
     log(f"[summary] phase seconds {seconds}; facade exact best "
@@ -1098,27 +1661,47 @@ def main() -> int:
     # `launches` counts the path each kernel serves (the facade's warm run
     # for K1, K4 and the scoring kernel, the validation and peak phases
     # for K5 and K6); `launches_per_facade_run` is the warm facade run's
-    # count for every kernel.  No single PyTorch call computes any of these
-    # functions, so `library_ms` is null throughout.
+    # count for every kernel, `launches_capped` the counts of the capped
+    # phase's runs (b) and (c), `launches_cli` those of the CLI's first
+    # run, `held_at_cli_shapes` that run's comparison with the twins.  No
+    # single PyTorch call computes any of these functions, so `library_ms`
+    # is null throughout.
     cnt = fa["counts"]
+
+    views_cli = {k: d for k, d in cl["held"].items() if k != "collin_pairs"}
+    held_cli = dict(
+        pair_valid={k: dict(S=d["S"], disagree=d["k1_disagree"])
+                    for k, d in views_cli.items()},
+        score={k: {key: d[key] for key in d
+                   if key in ("S", "M") or key.startswith("score_")}
+               for k, d in views_cli.items()},
+        collin_pairs=cl["held"]["collin_pairs"])
+
+    def also(key):
+        return dict(launches_capped=[cp["b"]["counts"][key],
+                                     cp["c"]["counts"][key]],
+                    launches_cli=cl["counts"][key],
+                    held_at_cli_shapes=held_cli[key])
     kernels = [
         dict(name="pair_valid (K1)", route="cuda",
              source="line3d_tpu_torch/csrc/pair_valid.cu",
              replaces="line3d_tpu/match/pairwise_pallas.py:216",
              launches=cnt["pair_valid"], library_ms=None,
-             launches_per_facade_run=cnt["pair_valid"], **k["pair_valid"]),
+             launches_per_facade_run=cnt["pair_valid"], **also("pair_valid"),
+             **k["pair_valid"]),
         dict(name="collin_pairs (K4)", route="cuda",
              source="line3d_tpu_torch/csrc/collin_pairs.cu",
              replaces="line3d_tpu/match/collinearity_pallas.py:35",
              launches=cnt["collin_pairs"], library_ms=None,
              launches_per_facade_run=cnt["collin_pairs"],
-             **k["collin_pairs"]),
+             **also("collin_pairs"), **k["collin_pairs"]),
         dict(name="score (K2/K3)", route="cuda",
              source="line3d_tpu_torch/csrc/scoring.cu",
              replaces="line3d_tpu/match/scoring_pallas.py:239",
              also_replaces="line3d_tpu/match/scoring_pallas.py:212",
              launches=cnt["score"], launches_m_gt_256=cnt["score_wide"],
              launches_per_facade_run=cnt["score"], library_ms=None,
+             **also("score"),
              max_abs_err=max(r["max_abs_err"]
                              for r in k["score"].values()),
              **{key: k["score"][1024][key] for key in

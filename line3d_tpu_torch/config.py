@@ -17,14 +17,16 @@ class L3DConfig:
     Every field cites the reference symbol it corresponds to.
 
     Fields the port does not read (they steer TPU-only machinery of
-    `line3d_tpu`): `view_pad_multiple`, `stable_shapes`, `capacity_probe`.
+    `line3d_tpu`): `view_pad_multiple`, `stable_shapes`.
 
-    The port always matches at each view's exact gate-passing capacity
-    (the reference's unbounded match list), so `max_matches_per_segment`
-    and `match_block_quota`, which size the capped mode, are not read
-    either.  `uncapped_fallback=False` (the capped mode itself) raises
-    NotImplementedError in `line3d_tpu_torch.Line3D` until its ROADMAP item
-    is ported.
+    Matching modes, as in `line3d_tpu`: with `uncapped_fallback` and
+    `capacity_probe` (the defaults) every view is matched once at its exact
+    gate-passing capacity (the reference's unbounded match list) and the
+    probe counters only report the scene-wide capacities; with
+    `capacity_probe=False` a pass at `max_matches_per_segment` /
+    `match_block_quota` is followed by an exact re-match of the views that
+    overflowed; with `uncapped_fallback=False` the capped pass stands and
+    the overflow is warned about.
     """
 
     # --- feature detection (commons.h:42-45) ---
@@ -90,11 +92,11 @@ class L3DConfig:
     # --- numerics ---
     eps: float = 1e-12                   # L3D_EPS / L3D_EPS_G
 
-    # --- capped-mode and shape knobs of line3d_tpu ---
+    # --- match caps, exactness guard and shape knobs of line3d_tpu ---
     max_matches_per_segment: int = 256
     match_block_quota: int = 8
     uncapped_fallback: bool = True
-    capacity_probe: bool = True          # TPU-only
+    capacity_probe: bool = True
     # segment-axis padding granularity (the port keeps it so that padded
     # shapes, and with them the compaction blocks, equal line3d_tpu's)
     pad_multiple: int = 128

@@ -22,7 +22,12 @@
 // projection of 3D points: a point-to-line distance of a few pixels is a
 // difference of coordinates near a thousand pixels, so the two confidences
 // differ by some 1e-5, and a support whose confidence sits that close to
-// support_t counts on one side only.
+// support_t counts on one side only.  That holds where supports lie on
+// their lines (synthetic segments).  Supports of detected segments lie
+// 1-3 px off, where the exponential passes the rounding on: there the
+// kernel parts from a float64 evaluation by up to 3e-3 (the float32 twin
+// by up to 2.8e-3 in its worst slot, but in far fewer slots; NVIDIA H100,
+// chip_smoke.py phase cli).
 //
 // The kernel reads the match table as the engine holds it (cam [S, M],
 // depths [S, M, 4], valid [S, M], the target coordinates [S, M, 4]) and

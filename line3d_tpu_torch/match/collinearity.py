@@ -26,6 +26,16 @@ from .collinearity_cuda import block_quota, collin_keep_plain, \
 from .pairwise import compact_rows_blockq
 
 
+def _two_sigma_sq(coll_sigma_sq, like):
+    """2 sigma^2 as a float32 tensor on `like`'s device.  Dividing by a
+    tensor is a true IEEE divide on every device, as in K4 and the
+    reference; dividing by a Python number is, on a CUDA device, a multiply
+    by its reciprocal, which rounds differently unless 2 sigma^2 is a power
+    of two."""
+    return torch.full((), 2.0 * float(coll_sigma_sq), dtype=like.dtype,
+                      device=like.device)
+
+
 def collinearity_matrix(segs, mask, coll_sigma_sq, aff_threshold=0.5):
     """Dense [S, S] collinearity scores for one view (0 where not collinear).
 
@@ -41,7 +51,7 @@ def collinearity_matrix(segs, mask, coll_sigma_sq, aff_threshold=0.5):
         g.dist_point_line_2d(line[None, :, :], p1[:, None, :]),
         g.dist_point_line_2d(line[None, :, :], p2[:, None, :]))
     d = torch.maximum(d_p_on_q, d_p_on_q.T)
-    aff = torch.exp(-d * d / (2.0 * coll_sigma_sq))
+    aff = torch.exp(-d * d / _two_sigma_sq(coll_sigma_sq, d))
 
     # no-overlap check (cudawrapper.cu:518-528)
     a1 = p1[:, None, 0:2]
@@ -85,7 +95,7 @@ def _pair_aff(si, sj, mask_i, mask_j, not_self, coll_sigma_sq,
                       dist(lja, ljb, ljc, p2x, p2y)),
         torch.maximum(dist(lia, lib, lic, q1x, q1y),
                       dist(lia, lib, lic, q2x, q2y)))
-    aff = torch.exp(-d * d / (2.0 * coll_sigma_sq))
+    aff = torch.exp(-d * d / _two_sigma_sq(coll_sigma_sq, d))
 
     def dot(ux, uy, vx, vy):
         return ux * vx + uy * vy

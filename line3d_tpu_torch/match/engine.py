@@ -9,13 +9,25 @@ reproduces the reference's
     (greedySelection, line3D.cc:899-965; addMatches only_best,
     view.cc:162-183).
 
-Every view is matched at its EXACT gate-passing capacity, the reference's
-unbounded match list (cudawrapper.cu:923-1007): kernel K1 yields the valid
-planes against all neighbors, their per-segment counts size the table
-(m_total = pow2(max count), no block quota), and the same planes are
-compacted, merged, re-triangulated and scored (K2/K3).  This is
-`line3d_tpu`'s run_matching + apply_uncapped_fallback without the capped
-first pass; a nonzero overflow raises.
+Kernel K1 yields a view's valid planes against all its neighbors; the same
+planes are counted, compacted, merged, re-triangulated and scored (K2/K3).
+The three matching modes of `line3d_tpu` (pipeline.py:387-522) are built
+from that step:
+  * exact (the default): every view at its EXACT gate-passing capacity,
+    the reference's unbounded match list (cudawrapper.cu:923-1007) —
+    m_total = pow2(max per-segment count), no block quota, each
+    neighbor's table cut to the view's own per-(segment, neighbor) bound
+    before the merge (lossless); a nonzero overflow raises;
+  * the capped pass (`run_matching(..., capped=True)`): every view at
+    quota = config.match_block_quota and m_total =
+    min(config.max_matches_per_segment, n_max * S); what the caps drop is
+    counted in `ViewMatches.overflow`, not raised;
+  * `apply_uncapped_fallback`: the overflowing views of a capped pass
+    re-matched at exact capacity and spliced in.
+Every pass also reduces K1's planes to the capacity-probe counters
+(need, total, blockmax, nbmax; parallel/sharded.py:319-378 of
+`line3d_tpu`), from which `decide_exact_capacities` picks the scene-wide
+launch capacities that `line3d_tpu`'s one-pass mode would use.
 """
 from __future__ import annotations
 
@@ -42,10 +54,13 @@ class ViewMatches:
     depths: np.ndarray | None = None       # [K, 4] float32
     confidence: np.ndarray | None = None   # [K] float32 (already / 2)
     overflow: int = 0
-    # exact capacity of the view: max / sum over src segments of raw
-    # gate-passing counts, and the match-slot width it was scored at
+    # the capacity-probe counters of the view (max / sum over src segments
+    # of raw gate-passing counts, max per (segment, target block) and per
+    # (segment, neighbor)), and the match-slot width it was scored at
     need_capacity: int = 0
     total_candidates: int = 0
+    block_max: int = 0
+    nb_max: int = 0
     m_total: int = 0
 
 
@@ -138,13 +153,14 @@ def _pow2(n: int) -> int:
     return 1 << max(int(np.ceil(np.log2(max(n, 1)))), 0)
 
 
-def match_view(ctx: ViewContext, v: int, nb: np.ndarray) -> dict:
-    """One view's matching step at its exact capacity, on the scene's
-    device.
+def match_view(ctx: ViewContext, v: int, nb: np.ndarray,
+               caps: tuple | None = None) -> dict:
+    """One view's matching step on the scene's device: at its exact
+    capacity, or, with `caps` = (quota, m_total), at those caps.
 
     Returns a dict of tensors cam, tgt [S, M] int32, depths [S, M, 4] f32,
-    valid [S, M] bool, conf [S, M] f32, and ints overflow, need, total and
-    m_total."""
+    valid [S, M] bool, conf [S, M] f32, and ints overflow, m_total and the
+    probe counters need, total, blockmax and nbmax."""
     cfg = ctx.config
     segs_nb, mask_nb, F_nb, RtKinv_nb, C_nb, P_nb = ctx.neighbor_arrays(v, nb)
     segs_src = ctx.scene.segments_t[v]
@@ -157,16 +173,28 @@ def match_view(ctx: ViewContext, v: int, nb: np.ndarray) -> dict:
     valid_planes = pair_valid(segs_src, mask_src, segs_nb, mask_nb, F_nb,
                               RtKinv_src, RtKinv_nb, C_src, C_nb,
                               cfg.min_overlap_lower, cfg.min_overlap_upper)
-    counts = valid_planes.sum(dim=2)                 # [N, S]
-    need = int(counts.sum(dim=0).max())
-    total = int(counts.sum())
-    m_total = min(_pow2(need), N * S)
+    # the probe counters, from one pass over the planes: the per-block
+    # sums give the per-neighbor counts
+    blk = pairwise.block_size(S)
+    block_counts = valid_planes.reshape(N, S, S // blk, blk).sum(dim=3)
+    counts = block_counts.sum(dim=2)                 # [N, S]
+    need, total, blockmax, nbmax = torch.stack([
+        counts.sum(dim=0).max(), counts.sum(), block_counts.max(),
+        counts.max()]).tolist()                      # one readback
+    if caps is None:
+        # no block quota (compact_rows_blockq clamps the quota to the
+        # block), and each neighbor's table cut to the view's own
+        # per-(segment, neighbor) bound before the merge (kept wide
+        # enough for the N tables to fill m_total slots): both lossless
+        quota, m_total = 128, min(_pow2(need), N * S)
+        per_nb_cap = max(_pow2(nbmax), -(-m_total // N))
+    else:
+        (quota, m_total), per_nb_cap = caps, None
 
-    # no block quota: compact_rows_blockq clamps the quota to the block
     res = pairwise.match_view_against_neighbors(
         segs_src, mask_src, RtKinv_src, C_src, segs_nb, mask_nb, F_nb,
-        RtKinv_nb, C_nb, quota=128, min_capacity=m_total,
-        valid=valid_planes)
+        RtKinv_nb, C_nb, quota=quota, min_capacity=m_total,
+        valid=valid_planes, per_nb_cap=per_nb_cap)
     cam, tgt, valid = pairwise.merge_neighbor_tables(res, m_total, S)
     tcoords = pairwise.gather_target_coords(segs_nb, cam, tgt)
     depths = pairwise.depths_for_matches(
@@ -183,7 +211,8 @@ def match_view(ctx: ViewContext, v: int, nb: np.ndarray) -> dict:
     dropped = (n_kept - cam.shape[1]).clamp_min(0)
     overflow = int(res["overflow"].sum()) + int(dropped.sum())
     return dict(cam=cam, tgt=tgt, depths=depths, valid=valid, conf=conf,
-                overflow=overflow, need=need, total=total, m_total=m_total)
+                overflow=overflow, need=need, total=total,
+                blockmax=blockmax, nbmax=nbmax, m_total=cam.shape[1])
 
 
 def _select_view_outputs(ctx: ViewContext, v: int, nb: np.ndarray,
@@ -242,15 +271,16 @@ def _select_view_outputs(ctx: ViewContext, v: int, nb: np.ndarray,
 
 
 def match_and_select_view(ctx: ViewContext, v: int, nb: np.ndarray,
-                          verbose: bool = False):
-    """match_view + host selection for one view.  Raises when the exact
-    capacity still overflowed (engine.py:436-439 of line3d_tpu).
+                          verbose: bool = False, caps: tuple | None = None):
+    """match_view + host selection for one view.  Without `caps` it raises
+    when the exact capacity still overflowed (engine.py:436-439 of
+    line3d_tpu); with them the overflow is counted in the ViewMatches.
 
     Returns (ViewMatches, best_row | None, median_depth, raw) where raw
     holds the view's host numpy match table (cam, tgt, depths, valid,
     conf)."""
-    o = match_view(ctx, v, nb)
-    if o["overflow"] != 0:
+    o = match_view(ctx, v, nb, caps)
+    if caps is None and o["overflow"] != 0:
         raise AssertionError(
             f"exact matching of view {v} overflowed ({o['overflow']}) at "
             f"capacity {o['m_total']} (needed {o['need']})")
@@ -258,24 +288,34 @@ def match_and_select_view(ctx: ViewContext, v: int, nb: np.ndarray,
            for k in ("cam", "tgt", "depths", "valid", "conf")}
     vm, best_row, med = _select_view_outputs(
         ctx, v, nb, raw["cam"], raw["tgt"], raw["depths"], raw["valid"],
-        raw["conf"], 0, verbose=verbose)
+        raw["conf"], o["overflow"], verbose=verbose)
     vm.need_capacity, vm.total_candidates = o["need"], o["total"]
+    vm.block_max, vm.nb_max = o["blockmax"], o["nbmax"]
     vm.m_total = o["m_total"]
     return vm, best_row, med, raw
 
 
 def run_matching(scene: Scene, cameras: CameraSet, neighbors: list,
-                 config: L3DConfig, verbose: bool = False):
+                 config: L3DConfig, verbose: bool = False,
+                 capped: bool = False):
     """Match + verify every view against its visual neighbors, on the
-    scene's device.
+    scene's device: each view at its exact capacity, or with `capped` every
+    view at the config's caps (line3d_tpu's run_matching,
+    engine.py:296-333), where dropped matches are counted per view.
 
     Returns (list[ViewMatches], BestMatches, median_depths [V] float64).
     Also sets cameras.median_depth (setMedianDepth, line3D.cc:835).
     """
     V = scene.num_views
-    if max((len(n) for n in neighbors), default=0) == 0:
+    n_max = max((len(n) for n in neighbors), default=0)
+    if n_max == 0:
         return [], _empty_best(), np.ones(V)
     ctx = ViewContext(scene, cameras, config)
+    # a segment can match up to S targets in each of n_max neighbors, so
+    # n_max*S (not S) is the true uncapped per-segment capacity
+    caps = (config.match_block_quota,
+            min(config.max_matches_per_segment,
+                n_max * scene.max_segments)) if capped else None
     all_matches, best_rows = [], []
     median_depths = np.ones(V)
     for v in range(V):
@@ -283,12 +323,145 @@ def run_matching(scene: Scene, cameras: CameraSet, neighbors: list,
         if len(nb) == 0:
             continue
         vm, best_row, median_depths[v], _ = match_and_select_view(
-            ctx, v, nb, verbose=verbose)
+            ctx, v, nb, verbose=verbose, caps=caps)
         cameras.median_depth[v] = median_depths[v]
         all_matches.append(vm)
         if best_row is not None:
             best_rows.append(best_row)
     return all_matches, _concat_best(best_rows), median_depths
+
+
+def probe_counters(matches: list, num_views: int):
+    """(need, total, blockmax, nbmax), each [V] int64, of a matching pass:
+    the capacity probe's per-view counters (zeros for views without
+    neighbors), as line3d_tpu's finalize_capacity_probe returns them."""
+    out = np.zeros((4, num_views), np.int64)
+    for vm in matches:
+        out[:, vm.view] = (vm.need_capacity, vm.total_candidates,
+                           vm.block_max, vm.nb_max)
+    return tuple(out)
+
+
+def decide_exact_capacities(need, total, blockmax, nbmax,
+                            config: L3DConfig, n_max: int, S: int,
+                            k_export_per_seg: int = 8):
+    """The single-pass launch capacities line3d_tpu picks from the probe
+    counters (engine.py:773-835 there).
+
+    Returns None when the DEFAULT capacities are already exact for every
+    view, else a dict of capacities bucketed as line3d_tpu buckets them:
+    m_total to the next power of two, the block quota to
+    {default, 32, 64, 128}, k_export to the next power of two of the
+    strict gate-passing bound (verified is a subset of gate-passing, so an
+    export of that size can never drop), and the per-neighbor
+    second-compaction width to pow2(nbmax) when that is narrower than the
+    block-compacted table.
+    """
+    need_max = int(np.max(need, initial=0))
+    total_max = int(np.max(total, initial=0))
+    bmax = int(np.max(blockmax, initial=0))
+    nbm = int(np.max(nbmax, initial=0))
+
+    # compact_rows_blockq raises the per-block quota to cover min_capacity
+    # (= m_total) and caps it at the block width; the lossless test must
+    # use that EFFECTIVE quota
+    blk = pairwise.block_size(S)
+    B = S // blk
+
+    def eff_quota(q, m):
+        return min(max(q, -(-m // B)), blk)
+
+    quota0 = config.match_block_quota
+    m0 = min(config.max_matches_per_segment, n_max * S)
+    k0 = min(S * k_export_per_seg, S * m0)
+    if need_max <= m0 and bmax <= eff_quota(quota0, m0) and total_max <= k0:
+        return None
+
+    m_total = min(max(_pow2(need_max), m0), n_max * S)
+    quota = 128
+    for q in (quota0, 32, 64, 128):
+        if eff_quota(q, m_total) >= bmax:
+            quota = q
+            break
+    k_export = min(max(_pow2(total_max), k0), S * m_total)
+    # block-compaction capacity per neighbor at the LAUNCH capacities; the
+    # second compaction only helps if its pow2 width is smaller
+    cap1 = B * eff_quota(quota, m_total)
+    nb_cap = _pow2(nbm)
+    per_nb_cap = nb_cap if nb_cap < cap1 else None
+    return dict(quota=quota, m_total=m_total, k_export=k_export,
+                per_nb_cap=per_nb_cap,
+                need=need_max, total=total_max, blockmax=bmax, nbmax=nbm)
+
+
+def rematch_views_exact(scene: Scene, cameras: CameraSet, neighbors: list,
+                        config: L3DConfig, views, verbose: bool = False):
+    """Re-match `views` at their exact gate-passing capacity — reference
+    semantics (every raw match kept, cudawrapper.cu:923-1007).
+
+    Scoring, selection, and the median depth are view-local (support comes
+    only from the view's own match table), so re-running just the
+    overflowing views at sufficient capacity reproduces a fully uncapped
+    run.
+
+    Returns {view: (ViewMatches, best_row | None, median_depth)}.
+    """
+    ctx = ViewContext(scene, cameras, config)
+    out = {}
+    for v in views:
+        nb = np.asarray(neighbors[v], np.int64)
+        if len(nb) == 0:
+            continue
+        vm, best_row, med, _ = match_and_select_view(ctx, v, nb,
+                                                     verbose=verbose)
+        if verbose:
+            print(f"[L3D] view {v}: re-matched uncapped "
+                  f"(capacity {vm.need_capacity} -> m_total {vm.m_total}, "
+                  f"{len(vm.src_seg)} verified)")
+        out[v] = (vm, best_row, med)
+    return out
+
+
+def apply_uncapped_fallback(matches, best, median_depths,
+                            scene: Scene, cameras: CameraSet,
+                            neighbors: list, config: L3DConfig,
+                            verbose: bool = False):
+    """Reference-exactness guard over a finished capped pass.
+
+    Views whose overflow counter is zero are provably identical to an
+    uncapped run (the caps only drop matches).  The rest are re-matched at
+    exact capacity (rematch_views_exact) and their results spliced in.
+
+    Returns (matches, best, median_depths, num_rematched)."""
+    over = [vm.view for vm in matches if vm.overflow > 0]
+    if not over:
+        return matches, best, median_depths, 0
+    if verbose:
+        print(f"[L3D] uncapped fallback: re-matching {len(over)} "
+              f"overflowing view(s) {over}")
+    repl = rematch_views_exact(scene, cameras, neighbors, config, over,
+                               verbose=verbose)
+
+    matches = [repl[vm.view][0] if vm.view in repl else vm for vm in matches]
+    median_depths = median_depths.copy()
+    for v, (_vm, _row, med) in repl.items():
+        median_depths[v] = med
+        cameras.median_depth[v] = med
+
+    # rebuild BestMatches in view-ascending order (the concatenation order
+    # is part of the downstream determinism contract), taking each view's
+    # rows from the replacement when one exists
+    views_all = sorted({int(x) for x in np.unique(best.view)} | set(repl))
+    rows = []
+    for v in views_all:
+        if v in repl:
+            if repl[v][1] is not None:
+                rows.append(repl[v][1])
+        else:
+            m = best.view == v
+            rows.append({f.name: getattr(best, f.name)[m]
+                         for f in dataclasses.fields(best)})
+    return matches, _concat_best(rows), median_depths, len(over)
 
 
 def _empty_best() -> BestMatches:

@@ -344,12 +344,27 @@ def depths_for_matches(segs_src, segs_nb, cam, tgt, valid,
     return torch.where(valid[..., None], depths, torch.zeros_like(depths))
 
 
+def _compact_per_neighbor(tgt_idx, kept, num_targets: int, per_nb_cap: int):
+    """The second, key-only compaction of all neighbors' block-compacted
+    tables [N, Ss, K1] at once: one target-ascending key sort, of which
+    the first per_nb_cap slots are kept — lossless for every (neighbor,
+    row) whose count fits.  Returns (tgt_idx, kept), each [N, Ss,
+    per_nb_cap]."""
+    pos = torch.arange(tgt_idx.shape[2], dtype=torch.int32,
+                       device=tgt_idx.device).expand_as(tgt_idx)
+    key = torch.where(kept, tgt_idx, num_targets + pos)
+    skey = torch.sort(key, dim=2).values[:, :, :per_nb_cap]
+    kept = skey < num_targets
+    return torch.where(kept, skey, torch.full_like(skey, -1)), kept
+
+
 def match_view_against_neighbors(segs_src, mask_src, RtKinv_src, C_src,
                                  segs_nb, mask_nb, F_nb, RtKinv_nb, C_nb,
                                  quota: int,
                                  min_overlap_lower=MIN_OVERLAP_LOWER,
                                  min_overlap_upper=MIN_OVERLAP_UPPER,
-                                 min_capacity: int = 0, valid=None):
+                                 min_capacity: int = 0, valid=None,
+                                 per_nb_cap: int | None = None):
     """Match one source view against a stack of N neighbor views.
 
     The [N, Ss, St] valid planes come from kernel K1 in one launch (or are
@@ -361,6 +376,11 @@ def match_view_against_neighbors(segs_src, mask_src, RtKinv_src, C_src,
       segs_nb: [N, St, 4]; mask_nb: [N, St]; F_nb: [N, 3, 3];
       RtKinv_nb: [N, 3, 3]; C_nb: [N, 3].
       quota: per-(source segment, 128-target-block) match quota.
+      per_nb_cap: optional second key-only compaction of each neighbor's
+        table from (St/128)*quota down to this many slots (the capacity
+        probe's per-(segment, neighbor) bound, pow2-bucketed), so that the
+        cross-neighbor merge sorts N*per_nb_cap keys.  Drops (count >
+        per_nb_cap) are counted in overflow.
 
     Returns dict with
       tgt_idx [N, Ss, K1], valid [N, Ss, K1], n_valid [N, Ss],
@@ -377,6 +397,9 @@ def match_view_against_neighbors(segs_src, mask_src, RtKinv_src, C_src,
     tgt_idx = torch.stack([o[0] for o in outs])
     kept = torch.stack([o[1] for o in outs])
     n_valid = torch.stack([o[2] for o in outs])
+    if per_nb_cap is not None and per_nb_cap < tgt_idx.shape[2]:
+        tgt_idx, kept = _compact_per_neighbor(tgt_idx, kept, valid.shape[2],
+                                              per_nb_cap)
     overflow = n_valid.sum(dim=1) - kept.sum(dim=(1, 2))
     return dict(tgt_idx=tgt_idx, valid=kept, n_valid=n_valid,
                 overflow=overflow.to(torch.int32))

@@ -1,7 +1,8 @@
 """ctypes loader + on-demand builder for the native host library.
 
 The sequential host stages (the native affinity enumeration and finalize,
-F-H union-find, the line-fit event sweep) run in C++.  The sources are the
+F-H union-find, the line-fit event sweep, and the line-segment detector's
+front, connected components, moments, extents and carve) run in C++.  The sources are the
 port's own copies, `fh_cluster.cpp` and `affinity_enum.cpp` beside this
 module (byte for byte those of the JAX package, which the port never
 reads), built with one g++ call into the port's `_build/` directory on
@@ -66,6 +67,7 @@ def get_lib():
         f32p = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
         i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
         i8p = np.ctypeslib.ndpointer(np.int8, flags="C_CONTIGUOUS")
+        u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
         one_i64 = np.ctypeslib.ndpointer(np.int64, shape=(1,),
                                          flags="C_CONTIGUOUS")
         sigs = {
@@ -97,6 +99,27 @@ def get_lib():
                 [f64p, i64p, i64p, ctypes.c_int64, ctypes.c_int64,
                  i32p, i32p, f32p, i64p, one_i64], ctypes.c_int64),
             "sort_unique_i64": ([i64p, ctypes.c_int64], ctypes.c_int64),
+            # the detector (detect/vectorized_lsd.py)
+            "grid_cc_compact": ([f32p, u8p, f32p, ctypes.c_int64,
+                                 ctypes.c_int64, i32p], ctypes.c_int64),
+            "region_moments": ([i32p, f32p, f32p, ctypes.c_int64,
+                                ctypes.c_int64, f64p], None),
+            "region_extents": ([i32p, ctypes.c_int64, ctypes.c_int64,
+                                f64p, f64p, f64p, f64p, f64p], None),
+            "lsd_carve": (
+                [f32p, f32p, i32p, u8p, ctypes.c_int64,   # norm, angle,
+                 ctypes.c_int64, ctypes.c_int64,          # labels, fail
+                 ctypes.c_double, ctypes.c_double,        # prec, dens_th
+                 ctypes.c_int64, f64p, ctypes.c_int64],   # min_sz, out
+                ctypes.c_int64),
+            "native_set_num_threads": ([ctypes.c_int64], None),
+            "lsd_front": (
+                [f32p, ctypes.c_int64, ctypes.c_int64,        # img, H, W
+                 f32p, ctypes.c_int64,                        # kern, nk
+                 i32p, f32p, ctypes.c_int64, ctypes.c_int64,  # iy, wy, oh, ty
+                 i32p, f32p, ctypes.c_int64, ctypes.c_int64,  # ix, wx, ow, tx
+                 ctypes.c_double, ctypes.c_float,             # rho, notdef
+                 f32p, f32p, u8p], ctypes.c_int64),           # norm/angle/def
         }
         for name, (argtypes, restype) in sigs.items():
             fn = getattr(lib, name)

@@ -83,13 +83,6 @@ def test_house10_diffusion_matches_golden(tmp_path, backend):
     assert len(result) == 16 and l3d.stats["t_diffusion"] > 0
 
 
-@pytest.mark.parametrize("field", ["uncapped_fallback"])
-def test_unported_options_raise(field):
-    l3d = _house10(L3DConfig(**{field: False}))
-    with pytest.raises(NotImplementedError, match="not ported"):
-        l3d.compute_3d_model()
-
-
 def _same_lines(got, want):
     assert len(got) == len(want) > 10
     for a, b in zip(got, want):
@@ -148,25 +141,39 @@ def _imports(path):
 
 
 def test_port_sources_import_no_jax():
-    seen = []
+    """Every .py file of the package, and chip_smoke.py."""
+    seen = [os.path.join(REPO, "chip_smoke.py")]
     for root, dirs, files in os.walk(PKG):
         dirs[:] = [d for d in dirs if d != "_build"]   # build outputs
-        for f in files:
-            if f.endswith(".py"):
-                path = os.path.join(root, f)
-                seen.append(path)
-                for mod in _imports(path):
-                    top = mod.split(".")[0]
-                    assert top not in ("jax", "jaxlib", "line3d_tpu"), \
-                        (path, mod)
-    assert len(seen) > 15
+        seen += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    for path in seen:
+        for mod in _imports(path):
+            top = mod.split(".")[0]
+            assert top not in ("jax", "jaxlib", "line3d_tpu"), (path, mod)
+    assert len(seen) > 40
+    for new in ("cli.py", "io/images.py", "io/bundler.py", "io/nvm.py",
+                "io/cache.py", "detect/vectorized_lsd.py",
+                "detect/detector.py", "utils/visualize.py"):
+        assert os.path.join(PKG, new) in seen
 
 
 def test_importing_the_port_loads_no_jax():
-    code = ("import sys, line3d_tpu_torch, line3d_tpu_torch.pipeline, "
-            "line3d_tpu_torch.utils.demo, line3d_tpu_torch.convert\n"
-            "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'line3d_tpu')]\n"
+    """Every module of the package (the CLI included) imports on a machine
+    without JAX, without cv2 and without PIL, and loads none of them."""
+    code = ("import sys, importlib, pkgutil\n"
+            "for m in ('cv2', 'PIL', 'jax', 'jaxlib'):\n"
+            "    sys.modules[m] = None\n"       # importing them now raises
+            "import line3d_tpu_torch\n"
+            "names = [i.name for i in pkgutil.walk_packages("
+            "line3d_tpu_torch.__path__, 'line3d_tpu_torch.')]\n"
+            "for n in names:\n"
+            "    importlib.import_module(n)\n"
+            "assert 'line3d_tpu_torch.cli' in names and len(names) > 40\n"
+            "from line3d_tpu_torch.io import images\n"
+            "assert images._HAS_CV2 is False\n"
+            "bad = [m for m, v in sys.modules.items() if v is not None and "
+            "m.split('.')[0] in ('jax', 'jaxlib', 'line3d_tpu', 'cv2', "
+            "'PIL')]\n"
             "assert not bad, bad\n"
             "import torch\n"
             "assert not torch.backends.cuda.matmul.allow_tf32\n"
