@@ -38,12 +38,17 @@ exits non-zero):
   8. facade    the 25-view facade scene, exact matching: one cold run and
                three warm runs, with the kernels' launch counts from one
                warm run, and one run under torch.profiler (the card's busy
-               time and idle share); then views 0 and 12: K1's planes
-               against its twin,
-               and the per-view step re-run on the CPU with the plain twins
+               time and idle share, the device-to-host copies' bytes and
+               milliseconds); two runs with use_sharded_engine=False (host
+               selection), whose TXT must equal the default's byte for
+               byte; then views 0 and 12: K1's planes against its twin,
+               the per-view step re-run on the CPU with the plain twins
                on the card's K1 planes, its tables, scores and best matches
-               compared with the card's, and the capacity-probe counters
-               held to those counted from the twin's planes.
+               compared with the card's, the capacity-probe counters
+               held to those counted from the twin's planes, the device
+               selection held to the host selection on the same card
+               tables, and the host synchronisations of one view's step
+               counted (at most three).
   9. facaded   the facade with device diffusion (reference mode) and device
                line refinement: one cold and three warm runs; the diffused
                weights held to the float64 host on the same graph, the
@@ -58,16 +63,22 @@ exits non-zero):
                uncapped_fallback=False (the capped pass alone, with its
                warning); and view 0's capped table scored by the kernel at
                M=256 against the twin.
- 12. cli       the 25 facade views rendered at 1920 x 1440 (numpy
+ 12. stress    the P25 stress scene, `make_demo_scene(25,
+               num_random_segments=2990)` (S = 3072), exact on the card:
+               one cold and one warm run, its exact capacities and no
+               overflow left.
+ 13. cli       the 25 facade views rendered at 1920 x 1440 (numpy
                rasteriser, binary PGM) with an NVM_V3 file, through
                `cli.main(["vsfm", ...])` on the card: one stamped STL and
                TXT, the detection's seconds and segments per view, the
                model's median distance to the ground-truth facade lines,
                and K1, the scoring kernel and K4 held against their twins
                at this run's shapes (S = 3072, M = 1024 and 2048; the
-               scoring kernel also against its twin in float64);
-               a second run from the 25 segment caches (the same TXT byte
-               for byte); a third as `python -m line3d_tpu_torch.cli vsfm
+               scoring kernel also against its twin in float64; on the
+               first of those views the device selection held to the host
+               selection); a second run from the 25 segment caches with
+               host selection (the same TXT byte for byte); a third as
+               `python -m line3d_tpu_torch.cli vsfm
                ... --profile_dir` in a process of its own, whose trace must
                name the three kernels.
 
@@ -818,13 +829,16 @@ def _counted(run, tag, wide=True):
 def _profile(run, tag):
     """One more run under torch.profiler: the card's busy time (the summed
     durations of its kernels, copies and fills), the run's host seconds,
-    the card's idle share, and the device ops that took the most time."""
+    the card's idle share, the device ops that took the most time, and the
+    device-to-host copies (count, bytes, milliseconds).  Returns the
+    copies' totals by kind."""
     from collections import defaultdict
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    from line3d_tpu_torch.utils.time_match_view import memcpy_totals
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        _, t = run()
+        (l3d, t) = run()
     per_op = defaultdict(float)
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
@@ -833,19 +847,25 @@ def _profile(run, tag):
     if not per_op:
         log(f"[{tag}] profiled run {t:.3f} s: the profiler saw no device "
             "events")
-        return
+        return {}
     top = sorted(per_op.items(), key=lambda kv: -kv[1])[:8]
     log(f"[{tag}] profiled run {t:.3f} s (host clock, profiler on): card "
         f"busy {busy:.1f} ms, idle share {1 - busy / (t * 1e3):.3f}; most "
         f"device time: " + "; ".join(f"{n[:60]} {ms:.1f} ms"
                                      for n, ms in top))
+    copies = memcpy_totals(prof)
+    d2h = copies.get("DtoH", dict(count=0, bytes=0, ms=0.0))
+    log(f"[{tag}] profiled run: device-to-host copies {d2h['count']}, "
+        f"{d2h['bytes']} bytes, {d2h['ms']:.3f} ms (t_match "
+        f"{l3d.stats['t_match']:.3f} s); all copies {copies}")
+    return copies
 
 
 def _facade_runs(cfg, scene, cams, n_warm, tag, profile=False):
     """One cold and n_warm warm runs of the facade through Line3D on the
     card; the kernels' launch counts of warm run 1; with profile, one more
     run under torch.profiler.  Returns (l3d of the last warm run, warm
-    seconds, counts)."""
+    seconds, counts, the profiled run's copies or None)."""
     import torch
     from line3d_tpu_torch import Line3D
 
@@ -877,9 +897,8 @@ def _facade_runs(cfg, scene, cams, n_warm, tag, profile=False):
     require(st["collinearity_overflow"] == 0,
             f"{tag}: collinearity overflow is not 0")
     require(st["num_lines"] > 0, f"{tag}: no lines")
-    if profile:
-        _profile(run, tag)
-    return l3d, warm, counts
+    copies = _profile(run, tag) if profile else None
+    return l3d, warm, counts, copies
 
 
 def phase_facade_diffusion_refine(card):
@@ -893,7 +912,8 @@ def phase_facade_diffusion_refine(card):
     scene, cams = make_facade_scene(num_views=25, config=cfg)
     with spy(dd, "diffuse_reference_device", []) as dcalls, \
             spy(rf, "refine_lines_device", []) as rcalls:
-        l3d, warm, counts = _facade_runs(cfg, scene, cams, 3, "facaded")
+        l3d, warm, counts, _ = _facade_runs(cfg, scene, cams, 3,
+                                            "facaded")
     V, best_s = scene.num_views, min(warm)
     log(f"[facaded] warm seconds {warm}; best {best_s:.3f} s = "
         f"{V / best_s:.2f} images/s on {card}; {l3d.stats['num_lines']} "
@@ -1075,14 +1095,67 @@ def phase_capped(card, facade_txt):
     n_bad = int((err > SCORE_ATOL + SCORE_RTOL * want.abs()).sum())
     n_scored = int((want > 0).sum())
     log(f"[capped] view 0 capped table [{o['cam'].shape[0]}, "
-        f"{o['cam'].shape[1]}]: overflow {o['overflow']}, "
+        f"{o['cam'].shape[1]}]: overflow {int(o['overflow'])}, "
         f"{int(o['valid'].sum())} valid slots, {n_scored} scored, max abs "
         f"err vs the twin {float(err.max()):.3e}, {n_bad} outside rtol "
         f"{SCORE_RTOL} / atol {SCORE_ATOL}")
-    require(o["cam"].shape[1] == 256 and o["overflow"] > 0 and
+    require(o["cam"].shape[1] == 256 and int(o["overflow"]) > 0 and
             n_bad <= max(1, SCORE_FLIP_MAX * n_scored),
             "capped: the scoring kernel disagrees with its twin at M=256")
     return out
+
+
+def phase_stress(card):
+    """The P25 stress scene (phase 12 of the module docstring):
+    `make_demo_scene`'s 25 views of a jittered wireframe with 2,990 uniform
+    random clutter segments each (S = 3,072), exact on the card, one cold
+    and one warm run.  Every view is matched at its exact capacity, so no
+    overflow may remain."""
+    import torch
+    from line3d_tpu_torch import Line3D, L3DConfig
+    from line3d_tpu_torch.utils.demo import make_demo_scene
+    cfg = L3DConfig()
+    t0 = time.perf_counter()
+    scene, cams = make_demo_scene(25, num_random_segments=2990, config=cfg,
+                                  device="cpu")
+    t_build = time.perf_counter() - t0
+
+    def run():
+        l3d = feed(Line3D(config=cfg), scene, cams)
+        t0 = time.perf_counter()
+        l3d.compute_3d_model()
+        torch.cuda.synchronize()
+        return l3d, time.perf_counter() - t0
+
+    l3d, t_cold = run()
+    (l3d, t_warm), counts = _counted(run, "stress", wide=False)
+    st = l3d.stats
+    mt = sorted(set(st["m_total"]))
+    log(f"[stress] make_demo_scene(25, num_random_segments=2990) built in "
+        f"{t_build:.2f} s: S {scene.max_segments}, segments per view "
+        f"{int(scene.seg_count.min())}-{int(scene.seg_count.max())}; cold "
+        f"{t_cold:.3f} s, warm {t_warm:.3f} s = {25 / t_warm:.2f} images/s "
+        f"on {card}; t_collin {st['t_collin']:.3f}, t_match "
+        f"{st['t_match']:.3f}, t_cluster {st['t_cluster']:.3f} s; "
+        f"probe_m_total {st['probe_m_total']}, m_total per view {mt}, "
+        f"match_overflow {st['match_overflow']}, views_rematched_uncapped "
+        f"{st['views_rematched_uncapped']}, collinearity overflow "
+        f"{st['collinearity_overflow']} (views re-derived "
+        f"{st['views_recollin_exact']}), {st['num_best']} best matches, "
+        f"{st['num_lines']} lines")
+    require(st["match_overflow"] == 0 and
+            st["views_rematched_uncapped"] == 0,
+            "stress: match overflow remains")
+    require(st["collinearity_overflow"] == 0 or
+            st["views_recollin_exact"] > 0,
+            "stress: collinearity overflow remains")
+    require(scene.max_segments == 3072 and st["num_lines"] > 0,
+            "stress: not the P25 stress shape, or no model")
+    return dict(cold=t_cold, warm=t_warm, counts=counts,
+                probe_m_total=st["probe_m_total"], m_total=mt,
+                match_overflow=st["match_overflow"],
+                views_rematched_uncapped=st["views_rematched_uncapped"],
+                lines=st["num_lines"], t_match=st["t_match"])
 
 
 # Phase cli holds the scoring kernel to its twins on detected segments
@@ -1098,7 +1171,12 @@ def phase_capped(card, facade_txt):
 # a view beyond three times the tolerance (a support-threshold flip).  The
 # kernel keeps the Pallas kernel's projection, affine in the depth and
 # undivided, which rounds more coarsely than the twin's projection of 3D
-# points.
+# points.  The reference parts from itself the same way: on facade rows
+# whose endpoints carry 1-3 px of noise, line3d_tpu's Pallas scoring kernel
+# leaves the same tolerance of its own XLA formulation on 0 to 2.9e-4 of
+# the scored slots a view, support-threshold flips among them
+# (tests/test_torch_scoring.py, PALLAS_XLA_OUTSIDE_MAX, which is this
+# bound).
 CLI_SCORE_OUTSIDE_MAX = 2e-3      # fraction of scored slots
 CLI_SCORE_FAR_MAX = 1e-5          # fraction beyond 3x the tolerance
 
@@ -1110,6 +1188,8 @@ def _check_path_kernels(l3d, tag):
     view's N neighbors (and the probe counters the run reduced from them)
     and the scoring kernel on the view's exact match table; then K4 on all
     the scene's views.  K1 and K4 are held to phase `kernels`' tolerances.
+    On the first of those views the device selection is held against the
+    host selection on the same card tables (_hold_selection).
     The scoring kernel is held to its float32 twin and, as the arbiter of
     the two, to the twin run in float64 on the same table with the support
     threshold moved down and up by the scoring tolerance (a lower threshold
@@ -1155,9 +1235,12 @@ def _check_path_kernels(l3d, tag):
         require(all(abs(g - w) <= k1_bad for g, w in zip(mine, want)),
                 f"{tag}: view {v}'s probe counters differ from the twin's")
 
-        o = engine.match_view(ctx, v, nb)
-        require(o["m_total"] == M and o["overflow"] == 0,
+        vm_d, row_d, med_d, o = engine.match_and_select_view(ctx, v, nb)
+        require(vm_d.m_total == M and vm_d.overflow == 0,
                 f"{tag}: view {v} was not re-matched at its run's width")
+        if v == min(views):
+            selection_syncs = _hold_selection(ctx, v, nb, o,
+                                              (vm_d, row_d, med_d), tag)
         tcoords = pairwise.gather_target_coords(segs_nb, o["cam"], o["tgt"])
 
         def plain(support_t, dtype):
@@ -1228,6 +1311,7 @@ def _check_path_kernels(l3d, tag):
     out["collin_pairs"] = dict(S=S, views=scene.num_views,
                                pairs=int((g[0] >= 0).sum()),
                                weights_differ=differ)
+    out["selection_syncs"] = selection_syncs
     return out
 
 
@@ -1329,11 +1413,21 @@ def run_cli_dataset(root, scene, cams, gt_lines, tag, extra=()):
     out_dir = os.path.join(root, "Line3D")
     argv = ["vsfm", "-i", nvm] + list(extra)
 
-    def run(more=()):
-        with spy(cli, "_finish", []) as calls:
-            t0 = time.perf_counter()
-            cli.main(argv + list(more))
-            t = time.perf_counter() - t0
+    def run(more=(), host_selection=False):
+        make = cli._line3d
+
+        def line3d(args, folder):
+            l3d = make(args, folder)
+            l3d.use_sharded_engine = not host_selection
+            return l3d
+        cli._line3d = line3d
+        try:
+            with spy(cli, "_finish", []) as calls:
+                t0 = time.perf_counter()
+                cli.main(argv + list(more))
+                t = time.perf_counter() - t0
+        finally:
+            cli._line3d = make
         return calls[0][0][0], t           # the Line3D, seconds
 
     (l3d, t_first), counts = _counted(run, tag)
@@ -1375,13 +1469,21 @@ def run_cli_dataset(root, scene, cams, gt_lines, tag, extra=()):
     log(f"[{tag}] kernels held against their twins at this run's shapes in "
         f"{time.perf_counter() - t0:.1f} s")
 
-    l3d2, t_second = run()
+    # the second run selects on the host (use_sharded_engine=False): the
+    # same model from the other selection
+    l3d2, t_second = run(host_selection=True)
     with open(txts[0], "rb") as f:
         second = f.read()
-    log(f"[{tag}] second run {t_second:.2f} s from the {V} caches: t_detect "
-        f"{l3d2.stats['t_detect']:.3f} s, TXT equal byte for byte "
+    log(f"[{tag}] second run {t_second:.2f} s from the {V} caches, with "
+        f"host selection: t_detect {l3d2.stats['t_detect']:.3f} s, t_match "
+        f"{l3d2.stats['t_match']:.3f} s (device selection "
+        f"{st['t_match']:.3f} s), TXT equal byte for byte "
         f"{first == second} ({len(first)} bytes)")
-    require(first == second, f"{tag}: the cached run wrote another model")
+    require(first == second, f"{tag}: the cached run with host selection "
+            "wrote another model")
+    require(l3d2.matches[0].depths is not None and
+            l3d.matches[0].depths is None,
+            f"{tag}: the two runs did not take the two selections")
     require(l3d2.stats["t_detect"] < 0.5 * st["t_detect"],
             f"{tag}: the cached run detected again")
 
@@ -1413,6 +1515,7 @@ def run_cli_dataset(root, scene, cams, gt_lines, tag, extra=()):
         f"{t_third:.1f} s: the same TXT, trace {len(trace)} bytes, kernel "
         f"names in it: {seen}")
     return dict(t_detect=st["t_detect"], t_match=st["t_match"],
+                t_match_host_selection=l3d2.stats["t_match"],
                 t_first=t_first, t_second=t_second, lines=st["num_lines"],
                 err=err, counts=counts, trace_names=seen, held=held,
                 segs=(int(n_segs.min()), int(np.median(n_segs)),
@@ -1427,7 +1530,7 @@ CLI_MEDIAN_ERR_MAX = 0.05
 
 def phase_cli(card):
     """Images on disk to a 3D line model through the port's `vsfm` entry
-    point on the card (phase 12 of the module docstring)."""
+    point on the card (phase 13 of the module docstring)."""
     from line3d_tpu_torch.utils.demo import facade_lines, make_facade_scene
     scene, cams = make_facade_scene(num_views=25, device="cpu")
     gt = facade_lines(n_cols=12, n_rows=10, seed=11)
@@ -1484,14 +1587,14 @@ def phase_house10():
 
 def phase_facade(card):
     import torch
-    from line3d_tpu_torch import L3DConfig
+    from line3d_tpu_torch import Line3D, L3DConfig
     from line3d_tpu_torch.match import engine
     from line3d_tpu_torch.utils.demo import make_facade_scene
     cfg = L3DConfig()
     scene, cams = make_facade_scene(num_views=25, config=cfg)
     V = scene.num_views
-    l3d, warm, counts = _facade_runs(cfg, scene, cams, 3, "facade",
-                                     profile=True)
+    l3d, warm, counts, copies = _facade_runs(cfg, scene, cams, 3, "facade",
+                                             profile=True)
     st = l3d.stats
     mt, mc = np.unique(st["m_total"], return_counts=True)
     log(f"[facade] {st['num_lines']} lines, {st['num_best']} best matches, "
@@ -1501,17 +1604,80 @@ def phase_facade(card):
     best_s = min(warm)
     log(f"[facade] warm seconds {warm}; best {best_s:.3f} s = "
         f"{V / best_s:.2f} images/s on {card}")
+    txt = _txt_text(l3d)
+
+    # the host selection (use_sharded_engine=False): the same model
+    host_s, host_match = [], []
+    for _ in range(2):
+        h = feed(Line3D(config=cfg, use_sharded_engine=False), scene, cams)
+        t0 = time.perf_counter()
+        h.compute_3d_model()
+        torch.cuda.synchronize()
+        host_s.append(time.perf_counter() - t0)
+        host_match.append(h.stats["t_match"])
+    same = _txt_text(h) == txt
+    log(f"[facade] use_sharded_engine=False (host selection): seconds "
+        f"{[round(t, 3) for t in host_s]}, t_match "
+        f"{[round(t, 3) for t in host_match]} s; TXT equal to the "
+        f"default's byte for byte {same} ({st['num_lines']} lines)")
+    require(same and h.matches[0].depths is not None and
+            l3d.matches[0].depths is None,
+            "facade: host selection wrote another model")
 
     # views 0 and 12 again, on the card and on the CPU
     torch.set_num_threads(os.cpu_count() or 1)
     ctx_g = engine.ViewContext(l3d.scene, l3d.cameras, cfg)
     ctx_c = engine.ViewContext(l3d.scene.to("cpu"), l3d.cameras, cfg)
+    syncs = {}
     for v in (0, 12):
         t0 = time.perf_counter()
-        _check_view_on_cpu(l3d, ctx_g, ctx_c, v)
+        syncs[v] = _check_view_on_cpu(l3d, ctx_g, ctx_c, v)
         log(f"[facade] view {v}: CPU check {time.perf_counter() - t0:.1f} s")
-    return dict(warm=warm, best=best_s, counts=counts, stats=st,
-                txt=_txt_text(l3d))
+    return dict(warm=warm, best=best_s, counts=counts, stats=st, txt=txt,
+                copies=copies, host_selection_seconds=host_s,
+                host_selection_t_match=host_match, syncs=syncs)
+
+
+# host synchronisations of one exact view's match_and_select_view with
+# device selection: the probe counters, the export's masked_select, the
+# selection buffer's copy
+VIEW_SYNCS_MAX = 3
+
+
+def _hold_selection(ctx, v, nb, table, got, tag):
+    """Device selection against the host selection on the same card
+    tables: `got` = (ViewMatches, best row, median) of a device-selected
+    match_and_select_view, `table` its card tables, copied here to the
+    host for `_select_view_outputs`.  Identities (in order), best rows and
+    median must be equal; the device-selected ViewMatches holds no depths
+    or confidences.  Then one more call, counting its host
+    synchronisations (at most VIEW_SYNCS_MAX)."""
+    from line3d_tpu_torch.match import engine
+    from line3d_tpu_torch.utils.time_match_view import count_syncs
+    vm_d, row_d, med_d = got
+    raw = {k: x.cpu().numpy() for k, x in table.items()}
+    vm_h, row_h, med_h = engine._select_view_outputs(
+        ctx, v, nb, raw["cam"], raw["tgt"], raw["depths"], raw["valid"],
+        raw["conf"], 0)
+    same_ids = all(np.array_equal(getattr(vm_d, f), getattr(vm_h, f))
+                   for f in ("src_seg", "tgt_view", "tgt_seg"))
+    same_best = (row_d is None) == (row_h is None) and (
+        row_h is None or all(np.array_equal(row_d[k], row_h[k])
+                             for k in row_h))
+    n_syncs, _ = count_syncs(
+        lambda: engine.match_and_select_view(ctx, v, nb))
+    log(f"[{tag}] view {v}: device selection vs host selection on the same "
+        f"card tables: {len(vm_d.src_seg)} verified identities equal "
+        f"{same_ids}, {0 if row_h is None else len(row_h['seg'])} best rows "
+        f"equal {same_best}, median {med_d!r} / {med_h!r}; one more call "
+        f"synchronised {n_syncs} times")
+    require(same_ids and same_best and med_d == med_h,
+            f"{tag}: view {v}: device selection differs from the host's")
+    require(vm_d.depths is None and vm_d.confidence is None,
+            f"{tag}: view {v}: device selection carried per-match data")
+    require(n_syncs <= VIEW_SYNCS_MAX,
+            f"{tag}: view {v}: {n_syncs} synchronisations")
+    return n_syncs
 
 
 def _check_view_on_cpu(l3d, ctx_g, ctx_c, v):
@@ -1523,7 +1689,9 @@ def _check_view_on_cpu(l3d, ctx_g, ctx_c, v):
     confidences within the scoring tolerance) or in a row holding a slot
     where the scoring kernel and its twin part by more than the tolerance
     (a support at the threshold), of which at most SCORE_FLIP_MAX of the
-    scored slots are allowed."""
+    scored slots are allowed.  The card's device selection is held against
+    the host selection on its own tables (_hold_selection).  Returns the
+    synchronisations of one more call on the card."""
     from line3d_tpu_torch.match import engine, pairwise, pairwise_cuda as k1
     nb = np.asarray(l3d.neighbors[v], np.int64)
     planes = {}
@@ -1533,15 +1701,18 @@ def _check_view_on_cpu(l3d, ctx_g, ctx_c, v):
         return planes["g"]
     try:
         engine.pair_valid = card_planes
-        _, bg, _, rg = engine.match_and_select_view(ctx_g, v, nb)
+        vm_g, bg, med_g, tg = engine.match_and_select_view(ctx_g, v, nb)
         engine.pair_valid = lambda *a: planes["g"].cpu()
-        _, bc, _, rc = engine.match_and_select_view(ctx_c, v, nb)
+        _, bc, _, tc = engine.match_and_select_view(ctx_c, v, nb)
     finally:
         engine.pair_valid = k1.pair_valid
     mine = l3d.best.view == v
     require(np.array_equal(bg["seg"], l3d.best.seg[mine]) and
             np.array_equal(bg["tgt_seg"], l3d.best.tgt_seg[mine]),
             f"view {v}: per-view step differs from the pipeline run")
+    n_syncs = _hold_selection(ctx_g, v, nb, tg, (vm_g, bg, med_g), "facade")
+    rg = {k: x.cpu().numpy() for k, x in tg.items()}
+    rc = {k: x.numpy() for k, x in tc.items()}
 
     segs_nb, mask_nb, F_nb, RtKinv_nb, C_nb, _ = ctx_c.neighbor_arrays(v, nb)
     twin = k1.pair_valid_plain(
@@ -1588,6 +1759,7 @@ def _check_view_on_cpu(l3d, ctx_g, ctx_c, v):
     require(int(flip.sum()) <= SCORE_FLIP_MAX * max(n_scored, 1),
             f"view {v}: scoring kernel disagrees with its twin")
     require(not bad, f"view {v}: best matches differ on equal tables")
+    return n_syncs
 
 
 def _compare_best(bg, bc, rg, rc, flip_rows):
@@ -1652,11 +1824,18 @@ def main() -> int:
     fd = timed("facaded", phase_facade_diffusion_refine, card)
     timed("facadeba", phase_facade_ba, card)
     cp = timed("capped", phase_capped, card, fa["txt"])
+    sp = timed("stress", phase_stress, card)
     cl = timed("cli", phase_cli, card)
     require("jax" not in sys.modules and "line3d_tpu" not in sys.modules,
             "JAX or line3d_tpu was imported")
+    d2h = (fa["copies"] or {}).get("DtoH", {})
     log(f"[summary] phase seconds {seconds}; facade exact best "
-        f"{fa['best']:.3f} s, with diffusion + refine best {fd['best']:.3f} s")
+        f"{fa['best']:.3f} s, with diffusion + refine best {fd['best']:.3f} "
+        f"s; facade profiled run device-to-host {d2h.get('bytes')} bytes in "
+        f"{d2h.get('count')} copies, {d2h.get('ms')} ms; host "
+        f"synchronisations of one exact view's step: facade "
+        f"{fa['syncs']}, cli {cl['held']['selection_syncs']}; stress warm "
+        f"{sp['warm']:.3f} s")
 
     # `launches` counts the path each kernel serves (the facade's warm run
     # for K1, K4 and the scoring kernel, the validation and peak phases
@@ -1668,7 +1847,7 @@ def main() -> int:
     # is null throughout.
     cnt = fa["counts"]
 
-    views_cli = {k: d for k, d in cl["held"].items() if k != "collin_pairs"}
+    views_cli = {k: d for k, d in cl["held"].items() if k.startswith("view")}
     held_cli = dict(
         pair_valid={k: dict(S=d["S"], disagree=d["k1_disagree"])
                     for k, d in views_cli.items()},
@@ -1680,6 +1859,7 @@ def main() -> int:
     def also(key):
         return dict(launches_capped=[cp["b"]["counts"][key],
                                      cp["c"]["counts"][key]],
+                    launches_stress=sp["counts"][key],
                     launches_cli=cl["counts"][key],
                     held_at_cli_shapes=held_cli[key])
     kernels = [

@@ -28,6 +28,9 @@ Every pass also reduces K1's planes to the capacity-probe counters
 (need, total, blockmax, nbmax; parallel/sharded.py:319-378 of
 `line3d_tpu`), from which `decide_exact_capacities` picks the scene-wide
 launch capacities that `line3d_tpu`'s one-pass mode would use.
+Selection runs on the tables' device by default (`parallel.sharded.
+device_select`, as on `line3d_tpu`'s default path), so the [S, M] tables
+stay there; `_select_view_outputs` is its host twin.
 """
 from __future__ import annotations
 
@@ -39,6 +42,7 @@ import torch
 from ..config import L3DConfig
 from ..core.cameras import CameraSet
 from ..scene import Scene
+from ..parallel import sharded
 from . import pairwise
 from .pairwise_cuda import pair_valid
 from .scoring_cuda import score
@@ -46,7 +50,13 @@ from .scoring_cuda import score
 
 @dataclasses.dataclass
 class ViewMatches:
-    """Filtered (verified) matches of one source view."""
+    """Filtered (verified) matches of one source view.
+
+    The identities (src_seg, tgt_view, tgt_seg) are what clustering reads
+    (cluster/affinity.py).  `depths` and `confidence` are filled only by
+    the host selection (`match_and_select_view(..., device_selection=
+    False)`, `Line3D(use_sharded_engine=False)`); under device selection,
+    the default, they are None, as on `line3d_tpu`'s default path."""
     view: int
     src_seg: np.ndarray      # [K] int32
     tgt_view: np.ndarray     # [K] int32 (global view index)
@@ -143,10 +153,20 @@ class ViewContext:
         neighbors `nb`, on the device."""
         F = self.cameras.fundamentals_for_pairs(
             np.stack([np.full(len(nb), v), nb], axis=1)).astype(np.float32)
-        idx = torch.as_tensor(nb, dtype=torch.long, device=self.device)
+        idx = self.upload(np.asarray(nb, np.int64))
         return (self.scene.segments_t[idx], self.scene.seg_mask_t[idx],
-                torch.as_tensor(F, device=self.device), self.RtKinv32[idx],
-                self.C32[idx], self.P32[idx])
+                self.upload(F), self.RtKinv32[idx], self.C32[idx],
+                self.P32[idx])
+
+    def upload(self, x: np.ndarray) -> torch.Tensor:
+        """A host array on the device without a synchronisation: a copy
+        from pageable memory waits for the stream, so on CUDA it is staged
+        in pinned memory (held by the allocator until the copy is done)
+        and copied asynchronously."""
+        t = torch.from_numpy(np.ascontiguousarray(x))
+        if self.device.type != "cuda":
+            return t.to(self.device)
+        return t.pin_memory().to(self.device, non_blocking=True)
 
 
 def _pow2(n: int) -> int:
@@ -159,8 +179,9 @@ def match_view(ctx: ViewContext, v: int, nb: np.ndarray,
     capacity, or, with `caps` = (quota, m_total), at those caps.
 
     Returns a dict of tensors cam, tgt [S, M] int32, depths [S, M, 4] f32,
-    valid [S, M] bool, conf [S, M] f32, and ints overflow, m_total and the
-    probe counters need, total, blockmax and nbmax."""
+    valid [S, M] bool, conf [S, M] f32 and overflow (a scalar on the
+    device, so that reading it costs no synchronisation here), and ints
+    m_total and the probe counters need, total, blockmax and nbmax."""
     cfg = ctx.config
     segs_nb, mask_nb, F_nb, RtKinv_nb, C_nb, P_nb = ctx.neighbor_arrays(v, nb)
     segs_src = ctx.scene.segments_t[v]
@@ -209,7 +230,7 @@ def match_view(ctx: ViewContext, v: int, nb: np.ndarray,
 
     n_kept = res["valid"].sum(dim=(0, 2))            # per src seg, all nbrs
     dropped = (n_kept - cam.shape[1]).clamp_min(0)
-    overflow = int(res["overflow"].sum()) + int(dropped.sum())
+    overflow = res["overflow"].sum() + dropped.sum()
     return dict(cam=cam, tgt=tgt, depths=depths, valid=valid, conf=conf,
                 overflow=overflow, need=need, total=total,
                 blockmax=blockmax, nbmax=nbmax, m_total=cam.shape[1])
@@ -221,6 +242,7 @@ def _select_view_outputs(ctx: ViewContext, v: int, nb: np.ndarray,
     """Host-side selection for one view's match table: median depth,
     confidence filter, best-per-segment (cudawrapper.cu:1025-1110;
     greedySelection, line3D.cc:899-965).  argmax takes the FIRST maximum.
+    The host twin of `parallel.sharded.device_select`.
 
     Returns (ViewMatches, best_row_dict | None, median_depth)."""
     scene, cameras, config = ctx.scene, ctx.cameras, ctx.config
@@ -270,38 +292,85 @@ def _select_view_outputs(ctx: ViewContext, v: int, nb: np.ndarray,
     return vm, best_row, median_depth
 
 
-def match_and_select_view(ctx: ViewContext, v: int, nb: np.ndarray,
-                          verbose: bool = False, caps: tuple | None = None):
-    """match_view + host selection for one view.  Without `caps` it raises
-    when the exact capacity still overflowed (engine.py:436-439 of
-    line3d_tpu); with them the overflow is counted in the ViewMatches.
+def _assemble_view_outputs(ctx: ViewContext, v: int, nb: np.ndarray,
+                           sel: dict, verbose: bool = False):
+    """(ViewMatches, best_row | None, median_depth) from `device_select`'s
+    unpacked buffer (line3d_tpu's _assemble_view_outputs, engine.py:449-484
+    there): identities only, best rows unprojected in float64 on the host,
+    the median from the device."""
+    S = ctx.scene.max_segments
+    median_depth = float(sel["median_depth"]) if sel["median_has"] else 1.0
+    src, camslot, tgt = sharded.unpack_export(sel["exp_packed"], S, len(nb))
+    vm = ViewMatches(view=v, src_seg=src,
+                     tgt_view=nb[camslot].astype(np.int32), tgt_seg=tgt,
+                     overflow=sel["overflow"])
+    best_row = None
+    bs = np.nonzero(sel["best_has"])[0]
+    if len(bs):
+        bconf = np.minimum(sel["best_conf"][bs] / ctx.config.confidence_norm,
+                           1.0)
+        best_d = sel["best_depths"]
+        best_row = _best_rows_f64(
+            ctx.scene, ctx.cameras, v, bs, best_d[bs, 0], best_d[bs, 1],
+            bconf, nb[sel["best_cam"][bs]], sel["best_tgt"][bs])
+    if verbose:
+        print(f"[L3D] view {v}: {len(src)} verified matches, "
+              f"median_depth={median_depth:.4f}, overflow={vm.overflow}")
+    return vm, best_row, median_depth
 
-    Returns (ViewMatches, best_row | None, median_depth, raw) where raw
-    holds the view's host numpy match table (cam, tgt, depths, valid,
-    conf)."""
+
+def match_and_select_view(ctx: ViewContext, v: int, nb: np.ndarray,
+                          verbose: bool = False, caps: tuple | None = None,
+                          device_selection: bool = True):
+    """match_view + selection for one view.  Without `caps` it raises when
+    the exact capacity still overflowed (engine.py:436-439 of line3d_tpu);
+    with them the overflow is counted in the ViewMatches.
+
+    With `device_selection` (the default, line3d_tpu's default path) the
+    selection runs where the tables live (`parallel.sharded.
+    device_select`) and one int32 buffer of O(S + verified) values crosses
+    to the host: an exact view synchronises three times (the probe
+    counters, the export's masked_select, the buffer's copy), and the
+    ViewMatches holds identities only.  Without it the five tables are
+    copied to the host and `_select_view_outputs` selects there.
+
+    Returns (ViewMatches, best_row | None, median_depth, table) where table
+    is the view's match table (cam, tgt, depths, valid, conf) as tensors on
+    the scene's device."""
     o = match_view(ctx, v, nb, caps)
-    if caps is None and o["overflow"] != 0:
+    table = {k: o[k] for k in ("cam", "tgt", "depths", "valid", "conf")}
+    if device_selection:
+        buf = sharded.device_select(*table.values(),
+                                    ctx.config.confidence_threshold, len(nb),
+                                    o["overflow"])
+        vm, best_row, med = _assemble_view_outputs(
+            ctx, v, nb, sharded.unpack_selection(buf.cpu().numpy(),
+                                                 ctx.scene.max_segments),
+            verbose=verbose)
+    else:
+        raw = {k: x.cpu().numpy() for k, x in table.items()}
+        vm, best_row, med = _select_view_outputs(
+            ctx, v, nb, raw["cam"], raw["tgt"], raw["depths"], raw["valid"],
+            raw["conf"], int(o["overflow"]), verbose=verbose)
+    if caps is None and vm.overflow != 0:
         raise AssertionError(
-            f"exact matching of view {v} overflowed ({o['overflow']}) at "
+            f"exact matching of view {v} overflowed ({vm.overflow}) at "
             f"capacity {o['m_total']} (needed {o['need']})")
-    raw = {k: o[k].cpu().numpy()
-           for k in ("cam", "tgt", "depths", "valid", "conf")}
-    vm, best_row, med = _select_view_outputs(
-        ctx, v, nb, raw["cam"], raw["tgt"], raw["depths"], raw["valid"],
-        raw["conf"], o["overflow"], verbose=verbose)
     vm.need_capacity, vm.total_candidates = o["need"], o["total"]
     vm.block_max, vm.nb_max = o["blockmax"], o["nbmax"]
     vm.m_total = o["m_total"]
-    return vm, best_row, med, raw
+    return vm, best_row, med, table
 
 
 def run_matching(scene: Scene, cameras: CameraSet, neighbors: list,
                  config: L3DConfig, verbose: bool = False,
-                 capped: bool = False):
+                 capped: bool = False, device_selection: bool = True):
     """Match + verify every view against its visual neighbors, on the
     scene's device: each view at its exact capacity, or with `capped` every
     view at the config's caps (line3d_tpu's run_matching,
-    engine.py:296-333), where dropped matches are counted per view.
+    engine.py:296-333), where dropped matches are counted per view.  Each
+    view selects on the device unless `device_selection` is False
+    (match_and_select_view).
 
     Returns (list[ViewMatches], BestMatches, median_depths [V] float64).
     Also sets cameras.median_depth (setMedianDepth, line3D.cc:835).
@@ -323,7 +392,8 @@ def run_matching(scene: Scene, cameras: CameraSet, neighbors: list,
         if len(nb) == 0:
             continue
         vm, best_row, median_depths[v], _ = match_and_select_view(
-            ctx, v, nb, verbose=verbose, caps=caps)
+            ctx, v, nb, verbose=verbose, caps=caps,
+            device_selection=device_selection)
         cameras.median_depth[v] = median_depths[v]
         all_matches.append(vm)
         if best_row is not None:
@@ -395,7 +465,8 @@ def decide_exact_capacities(need, total, blockmax, nbmax,
 
 
 def rematch_views_exact(scene: Scene, cameras: CameraSet, neighbors: list,
-                        config: L3DConfig, views, verbose: bool = False):
+                        config: L3DConfig, views, verbose: bool = False,
+                        device_selection: bool = True):
     """Re-match `views` at their exact gate-passing capacity — reference
     semantics (every raw match kept, cudawrapper.cu:923-1007).
 
@@ -412,8 +483,8 @@ def rematch_views_exact(scene: Scene, cameras: CameraSet, neighbors: list,
         nb = np.asarray(neighbors[v], np.int64)
         if len(nb) == 0:
             continue
-        vm, best_row, med, _ = match_and_select_view(ctx, v, nb,
-                                                     verbose=verbose)
+        vm, best_row, med, _ = match_and_select_view(
+            ctx, v, nb, verbose=verbose, device_selection=device_selection)
         if verbose:
             print(f"[L3D] view {v}: re-matched uncapped "
                   f"(capacity {vm.need_capacity} -> m_total {vm.m_total}, "
@@ -425,7 +496,8 @@ def rematch_views_exact(scene: Scene, cameras: CameraSet, neighbors: list,
 def apply_uncapped_fallback(matches, best, median_depths,
                             scene: Scene, cameras: CameraSet,
                             neighbors: list, config: L3DConfig,
-                            verbose: bool = False):
+                            verbose: bool = False,
+                            device_selection: bool = True):
     """Reference-exactness guard over a finished capped pass.
 
     Views whose overflow counter is zero are provably identical to an
@@ -440,7 +512,8 @@ def apply_uncapped_fallback(matches, best, median_depths,
         print(f"[L3D] uncapped fallback: re-matching {len(over)} "
               f"overflowing view(s) {over}")
     repl = rematch_views_exact(scene, cameras, neighbors, config, over,
-                               verbose=verbose)
+                               verbose=verbose,
+                               device_selection=device_selection)
 
     matches = [repl[vm.view][0] if vm.view in repl else vm for vm in matches]
     median_depths = median_depths.copy()

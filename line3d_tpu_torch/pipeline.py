@@ -37,7 +37,7 @@ class Line3D:
     """Line-based multi-view stereo on PyTorch, with hand-written CUDA
     kernels on an NVIDIA GPU.
 
-        l3d = Line3D(config, data_directory=folder)      # on the card
+        l3d = Line3D(folder, config)                     # on the card
         for i, img in enumerate(images):
             l3d.add_image(i, img, K, R, t, worldpoint_ids)
         result = l3d.compute_3d_model()
@@ -48,14 +48,23 @@ class Line3D:
     elsewhere.  With a `data_directory` (created when given) detected
     segments are cached there per image.
 
-    The device is "cuda" unless the caller asks for the CPU, and the
-    constructor raises when CUDA is missing: there is no quiet CPU run.
-    On a CUDA device every kernel runs on the card (there is no fallback);
-    on `device="cpu"` every kernel runs as its plain PyTorch twin.
+    The positional arguments are `line3d_tpu.Line3D`'s: (data_directory,
+    config, verbose, use_sharded_engine).  `use_sharded_engine` (default
+    True) keeps its meaning there: each view's best matches, median depth
+    and verified identities are selected on the device and only those
+    cross to the host; False copies each view's match tables to the host
+    and selects there.  The models are the same.
+
+    The device, a keyword, is "cuda" unless the caller asks for the CPU,
+    and the constructor raises when CUDA is missing: there is no quiet CPU
+    run.  On a CUDA device every kernel runs on the card (there is no
+    fallback); on `device="cpu"` every kernel runs as its plain PyTorch
+    twin.
     """
 
-    def __init__(self, config: L3DConfig = DEFAULT_CONFIG, device="cuda",
-                 verbose: bool = False, data_directory: str | None = None):
+    def __init__(self, data_directory: str | None = None,
+                 config: L3DConfig = DEFAULT_CONFIG, verbose: bool = False,
+                 use_sharded_engine: bool = True, *, device="cuda"):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Line3D: device 'cuda' requested but "
@@ -65,6 +74,7 @@ class Line3D:
         self.config = config
         self.verbose = verbose
         self.data_directory = data_directory
+        self.use_sharded_engine = use_sharded_engine
         if data_directory:
             os.makedirs(data_directory, exist_ok=True)
         self.reset()
@@ -307,11 +317,13 @@ class Line3D:
         # a pass at the scene-wide capacities the probe counters decide,
         # which are only reported; without the probe a pass at the
         # config's caps, then the overflowing views re-matched; without
-        # the guard the capped pass as it is, and a warning
+        # the guard the capped pass as it is, and a warning.  Every pass
+        # selects on the device unless use_sharded_engine is off
         one_pass = cfg.uncapped_fallback and cfg.capacity_probe
+        on_device = self.use_sharded_engine
         matches, best, med = engine.run_matching(
             scene, cams, self.neighbors, cfg, verbose=self.verbose,
-            capped=not one_pass)
+            capped=not one_pass, device_selection=on_device)
         decision = None
         if one_pass and matches:
             decision = engine.decide_exact_capacities(
@@ -339,7 +351,8 @@ class Line3D:
                 matches, best, med, n_rematched = \
                     engine.apply_uncapped_fallback(
                         matches, best, med, scene, cams, self.neighbors,
-                        cfg, verbose=self.verbose)
+                        cfg, verbose=self.verbose,
+                        device_selection=on_device)
             else:
                 print(f"[L3D] WARNING: match caps dropped "
                       f"{overflow_total} gate-passing matches across "

@@ -1,8 +1,10 @@
 """Self-contained demo scene builder (no image data needed).
 
-Copy of `line3d_tpu/utils/demo.py`'s structured facade scene: a posed
-multi-view scene with exact 2D segment projections, built for the port's
-classes (the scene's tensors live on `device`).
+Copy of `line3d_tpu/utils/demo.py`: posed multi-view scenes with exact 2D
+segment projections, built for the port's classes (the scene's tensors
+live on `device`).  `make_facade_scene` is the structured facade;
+`make_demo_scene` a jittered wireframe plus uniform random clutter
+segments per view, for benchmark shapes where the match caps saturate.
 """
 from __future__ import annotations
 
@@ -11,6 +13,20 @@ import numpy as np
 from ..core.cameras import CameraSet
 from ..scene import Scene
 from ..config import L3DConfig, DEFAULT_CONFIG
+
+
+def wireframe(jitter: float = 0.18, seed: int = 7) -> np.ndarray:
+    """[16, 2, 3] edges of a jittered unit cube with a roof apex."""
+    c = np.array([
+        [0, 0, 0], [1, 0, 0], [1, 1, 0], [0, 1, 0],
+        [0, 0, 1], [1, 0, 1], [1, 1, 1], [0, 1, 1],
+        [0.5, 0.5, 1.6],
+    ], float) - np.array([0.5, 0.5, 0.5])
+    rng = np.random.default_rng(seed)
+    c = c + rng.uniform(-jitter, jitter, c.shape)
+    edges = [(0, 1), (1, 2), (2, 3), (3, 0), (4, 5), (5, 6), (6, 7), (7, 4),
+             (0, 4), (1, 5), (2, 6), (3, 7), (4, 8), (5, 8), (6, 8), (7, 8)]
+    return np.stack([np.stack([c[a], c[b]]) for a, b in edges])
 
 
 def look_at(C, target, up=(0, 0, 1.0)):
@@ -159,3 +175,71 @@ def _project_batch(cams: CameraSet, v: int, X: np.ndarray):
 def _inside(p: np.ndarray, width: int, height: int) -> np.ndarray:
     return (p[:, 0] >= 0) & (p[:, 0] < width) & \
            (p[:, 1] >= 0) & (p[:, 1] < height)
+
+
+def make_demo_scene(num_views: int = 10, width: int = 1920, height: int = 1440,
+                    focal: float = 1800.0, radius: float = 4.0,
+                    num_random_segments: int = 0, seed: int = 0,
+                    config: L3DConfig = DEFAULT_CONFIG, device="cuda"):
+    """Scene with wireframe projections plus `num_random_segments` clutter
+    segments per view (for realistic benchmark shapes).  The segments,
+    masks, cameras and worldpoints are `line3d_tpu`'s for the same
+    arguments, bit for bit."""
+    rng = np.random.default_rng(seed)
+    lines = wireframe()
+    V = num_views
+
+    Ks, Rs, ts = [], [], []
+    for v in range(V):
+        ang = 2 * np.pi * v / V
+        C = np.array([radius * np.cos(ang), radius * np.sin(ang),
+                      radius * 0.35])
+        R, t = look_at(C, np.zeros(3))
+        K = np.array([[focal, 0, width / 2.0], [0, focal, height / 2.0],
+                      [0, 0, 1.0]])
+        Ks.append(K); Rs.append(R); ts.append(t)
+
+    cams = CameraSet(K=np.stack(Ks), R=np.stack(Rs), t=np.stack(ts),
+                     width=np.full(V, width), height=np.full(V, height),
+                     uncertainty_lower_px=config.uncertainty_lower_px,
+                     uncertainty_upper_px=config.uncertainty_upper_px)
+
+    seg_lists = []
+    for v in range(V):
+        segs = []
+        for A, B in lines:
+            def proj(X):
+                x = cams.K[v] @ (cams.R[v] @ X + cams.t[v])
+                return x[:2] / x[2], x[2]
+            pa, za = proj(A)
+            pb, zb = proj(B)
+            if za <= 0.1 or zb <= 0.1:
+                continue
+            if not (0 <= pa[0] < width and 0 <= pa[1] < height and
+                    0 <= pb[0] < width and 0 <= pb[1] < height):
+                continue
+            segs.append(np.concatenate([pa, pb]))
+        for _ in range(num_random_segments):
+            p = rng.uniform([0, 0], [width, height])
+            ang = rng.uniform(0, np.pi)
+            ln = rng.uniform(20, 200)
+            d = np.array([np.cos(ang), np.sin(ang)]) * ln
+            segs.append(np.concatenate([p, p + d]))
+        seg_lists.append(np.asarray(segs, np.float32).reshape(-1, 4))
+
+    # worldpoints from line samples
+    wp_lists = [[] for _ in range(V)]
+    wp = 0
+    for A, B in lines:
+        for s in np.linspace(0.1, 0.9, 6):
+            X = A + s * (B - A)
+            for v in range(V):
+                x = cams.K[v] @ (cams.R[v] @ X + cams.t[v])
+                if x[2] > 0.1 and 0 <= x[0] / x[2] < width and \
+                        0 <= x[1] / x[2] < height:
+                    wp_lists[v].append(wp)
+            wp += 1
+
+    scene = Scene.from_ragged(seg_lists, cams, wp_lists=wp_lists,
+                              config=config, device=device)
+    return scene, cams

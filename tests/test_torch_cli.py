@@ -286,7 +286,7 @@ def test_add_image_cache_and_parallel_order(tmp_path):
     items = _house_items(syn)
     cfg = L3DConfig()
     data = str(tmp_path / "data" / "L3D_data")
-    seq = Line3D(cfg, device="cpu", data_directory=data)
+    seq = Line3D(data, cfg, device="cpu")
     assert os.path.isdir(data)
     n = [seq.add_image(*it) for it in items]
     assert n == [len(s) for s in seq._segments] and min(n) > 10
@@ -298,7 +298,7 @@ def test_add_image_cache_and_parallel_order(tmp_path):
     with pytest.raises(ValueError, match="unlinked"):
         seq.add_image(99, items[0][1], *items[0][2:5], None)
 
-    par = Line3D(cfg, device="cpu", data_directory=str(tmp_path / "par"))
+    par = Line3D(str(tmp_path / "par"), cfg, device="cpu")
     par.add_images_parallel(
         [(it[0], (lambda im=it[1]: im)) + it[2:] for it in items], workers=3)
     assert par._images == seq._images == [10 + v for v in range(6)]
@@ -309,7 +309,7 @@ def test_add_image_cache_and_parallel_order(tmp_path):
         par.add_images_parallel(items[:1])
 
     # cached: no detection, the same segments; then -l off removes the file
-    again = Line3D(cfg, device="cpu", data_directory=data)
+    again = Line3D(data, cfg, device="cpu")
     again.add_image(*items[0])
     assert again.stats["t_detect"] == 0.0
     np.testing.assert_array_equal(again._segments[0], seq._segments[0])
@@ -335,7 +335,8 @@ def test_fixed_view_similarity_path():
     sim, _ = view_similarities_from_worldpoints(syn.wp_lists,
                                                 syn.scene.num_views)
     cfg = L3DConfig(use_collinearity=False)
-    fixed, linked = Line3D(cfg, device="cpu"), Line3D(cfg, device="cpu")
+    fixed = Line3D(config=cfg, device="cpu")
+    linked = Line3D(config=cfg, device="cpu")
     with pytest.raises(ValueError, match="unlinked"):
         fixed.add_view_segments(0, syn.scene.segments[0], syn.cameras.K[0],
                                 syn.cameras.R[0], syn.cameras.t[0])

@@ -12,7 +12,9 @@ and counts identical to its plain twin's and its weights bit-equal;
 scoring rtol 2e-3 / atol 2e-4, where fewer than 1e-4 of the scored slots may differ by a support whose
 confidence sits at the threshold, at widths that fit a block's shared
 memory and at M = 4096, which does not; K6 chain sums within
-peak.CHAIN_RTOL of the twin's.  Device diffusion: tests/test_cluster.py's
+peak.CHAIN_RTOL of the twin's.  Device selection (parallel/sharded.py):
+the card's buffer equal to the CPU's, and equal matches to the host
+selection's, bit for bit.  Device diffusion: tests/test_cluster.py's
 rtol 2e-4 / atol 1e-7 against the float64 host; device refine:
 tests/test_refine.py's criteria against the host."""
 import os
@@ -31,7 +33,8 @@ from line3d_tpu_torch.match import collinearity as col, \
     scoring_cuda as k23
 from line3d_tpu_torch.utils import peak as k6
 from line3d_tpu_torch.utils.synthetic import make_scene
-from torch_port_helpers import HOUSE10_DIFFUSION_OUTSIDE, HOUSE10_OUTSIDE
+from torch_port_helpers import HOUSE10_DIFFUSION_OUTSIDE, HOUSE10_OUTSIDE, \
+    SELECTION_KINDS, selection_tables
 
 pytestmark = pytest.mark.cuda
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -452,3 +455,61 @@ def test_device_refine_on_the_card_matches_host(dev):
     assert (ra_d <= ra_h + 0.05).all()
     assert np.abs(np.sum(dd * dh, axis=1)).min() > 0.9999
     assert np.linalg.norm(np.cross(Pd - Ph, dh), axis=1).max() < 5e-3
+
+
+@pytest.mark.parametrize("kind", SELECTION_KINDS)
+def test_device_select_on_the_card_equals_the_cpu(dev, kind):
+    """parallel.sharded.device_select on the card against the same ops on
+    the CPU, on the seeded tables of tests/test_torch_select.py: the same
+    buffer, bit for bit."""
+    from line3d_tpu_torch.parallel import sharded
+    tabs = selection_tables(kind, 64)
+    got = sharded.device_select(
+        *(torch.as_tensor(x, device=dev) for x in tabs), 1.0, 5, 3)
+    want = sharded.device_select(*map(torch.as_tensor, tabs), 1.0, 5, 3)
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+
+
+def test_device_selection_on_the_card_equals_host_selection(dev):
+    """The 6-view house matched on the card with device and with host
+    selection: the same verified identities, best matches and medians, bit
+    for bit; an exact view synchronises with the host at most three
+    times."""
+    import dataclasses
+    import warnings
+    from line3d_tpu_torch.core.conditioning import compute_conditioning
+    from line3d_tpu_torch.match import engine
+    from line3d_tpu_torch.scene import find_visual_neighbors, \
+        view_similarities_from_worldpoints
+    syn = make_scene(num_views=6, device=dev)
+    cams = syn.cameras
+    sim, _ = view_similarities_from_worldpoints(syn.wp_lists, 6)
+    nbrs = find_visual_neighbors(sim, cams.baselines(), 0.25, 10)
+    tr_ = compute_conditioning(cams.C)
+    cams.transform(tr_.Qinv, tr_.scale)
+    cfg = L3DConfig()
+    m_d, b_d, med_d = engine.run_matching(syn.scene, cams, nbrs, cfg)
+    m_h, b_h, med_h = engine.run_matching(syn.scene, cams, nbrs, cfg,
+                                          device_selection=False)
+    for a, b in zip(m_d, m_h):
+        for f in ("src_seg", "tgt_view", "tgt_seg"):
+            np.testing.assert_array_equal(getattr(a, f), getattr(b, f))
+        assert a.depths is None and b.depths is not None
+    for f in dataclasses.fields(b_d):
+        np.testing.assert_array_equal(getattr(b_d, f.name),
+                                      getattr(b_h, f.name))
+    np.testing.assert_array_equal(med_d, med_h)
+    ctx = engine.ViewContext(syn.scene, cams, cfg)
+    nb = np.asarray(nbrs[0], np.int64)
+    engine.match_and_select_view(ctx, 0, nb)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            engine.match_and_select_view(ctx, 0, nb)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [w for w in seen
+             if "called a synchronizing CUDA operation" in str(w.message)]
+    assert 1 <= len(syncs) <= 3, [str(w.message) for w in syncs]

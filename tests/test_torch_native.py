@@ -55,7 +55,8 @@ def test_port_alone_builds_and_runs_the_host_library(tmp_path):
         assert labels[0] == labels[1] == labels[2] != labels[3]
         assert labels[3] == labels[4]
         syn = make_scene(num_views=4, device="cpu")
-        l3d = Line3D(L3DConfig(use_collinearity=False), device="cpu")
+        l3d = Line3D(config=L3DConfig(use_collinearity=False),
+                     device="cpu")
         for v in range(syn.scene.num_views):
             l3d.add_view_segments(
                 v, syn.scene.segments[v][syn.scene.seg_mask[v]],

@@ -153,7 +153,8 @@ def test_port_sources_import_no_jax():
     assert len(seen) > 40
     for new in ("cli.py", "io/images.py", "io/bundler.py", "io/nvm.py",
                 "io/cache.py", "detect/vectorized_lsd.py",
-                "detect/detector.py", "utils/visualize.py"):
+                "detect/detector.py", "utils/visualize.py",
+                "parallel/sharded.py"):
         assert os.path.join(PKG, new) in seen
 
 
@@ -169,6 +170,7 @@ def test_importing_the_port_loads_no_jax():
             "for n in names:\n"
             "    importlib.import_module(n)\n"
             "assert 'line3d_tpu_torch.cli' in names and len(names) > 40\n"
+            "assert 'line3d_tpu_torch.parallel.sharded' in names\n"
             "from line3d_tpu_torch.io import images\n"
             "assert images._HAS_CV2 is False\n"
             "bad = [m for m, v in sys.modules.items() if v is not None and "

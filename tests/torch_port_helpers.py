@@ -63,3 +63,42 @@ def facade_pair(v: int = 0, n: int = 1, S: int = 128, St: int = 256):
     st, mt = cut(n, St)
     return (ss, st, ms, mt, f32(cams.fundamental(v, n)), f32(cams.RtKinv[v]),
             f32(cams.RtKinv[n]), f32(cams.C[v]), f32(cams.C[n]))
+
+
+SELECTION_KINDS = ("mixed", "unverified", "no_median")
+
+
+def selection_tables(kind, S, M=48, N=5, St=40, seed=3):
+    """(cam, tgt, depths, valid, conf) numpy [S, M] merged match tables of
+    one of SELECTION_KINDS, in merge_neighbor_tables' layout: each row's
+    valid slots first, ascending in cam * St + tgt, the rest cam = tgt =
+    -1; confidences on a grid of quarter steps (exact ties, one planted at
+    each row's maximum), some rows all invalid.  "mixed" has verified
+    matches (conf > 1) and a median; "unverified" none above 1 but a
+    median; "no_median" no raw maximum above 0.5."""
+    rng = np.random.default_rng(seed + SELECTION_KINDS.index(kind))
+    cam = np.full((S, M), -1, np.int32)
+    tgt = np.full((S, M), -1, np.int32)
+    valid = np.zeros((S, M), bool)
+    for r in range(S):
+        k = 0 if r % 7 == 3 else int(rng.integers(1, M + 1))
+        keys = np.sort(rng.choice(N * St, k, replace=False))
+        cam[r, :k], tgt[r, :k] = keys // St, keys % St
+        valid[r, :k] = True
+    conf = (rng.integers(0, 13, (S, M)) * 0.25).astype(np.float32)
+    smooth = rng.uniform(0.0, 3.0, (S, M)).astype(np.float32)
+    conf = np.where(rng.uniform(size=(S, M)) < 0.3, smooth, conf)
+    # plant a tie at each row's maximum, in a later slot
+    for r in range(S):
+        n = int(valid[r].sum())
+        if n >= 2:
+            a, b = sorted(rng.choice(n, 2, replace=False))
+            conf[r, b] = conf[r, a] = conf[r, :n].max()
+    if kind == "unverified":
+        conf = np.minimum(conf, np.float32(1.0))
+    elif kind == "no_median":
+        conf = np.minimum(conf, np.float32(0.5))
+    conf = np.where(valid, conf, 0).astype(np.float32)
+    depths = rng.uniform(0.5, 20.0, (S, M, 4)).astype(np.float32)
+    depths[~valid] = 0
+    return cam, tgt, depths, valid, conf
