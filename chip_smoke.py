@@ -80,7 +80,19 @@ exits non-zero):
                host selection (the same TXT byte for byte); a third as
                `python -m line3d_tpu_torch.cli vsfm
                ... --profile_dir` in a process of its own, whose trace must
-               name the three kernels.
+               name the three kernels; then, if cv2 or PIL imports, the
+               same images as PNG with a bundle.rd.out through
+               `cli.main(["bundler", ...])`, held as the vsfm run is.
+ 14. multiproc the facade over max(2, cards) ranks (torch.distributed,
+               gloo on 127.0.0.1), each a process of its own on
+               cuda:{rank % cards} (one card: two ranks share it): each
+               rank matches and collinearises only its own views (K1 and
+               the scoring kernel once per own view, K4 once) and
+               all-gathers what they read back; the exact run and the
+               capped run (capacity_probe=False: the owners re-match the
+               overflowing views) must write phase 8's TXT byte for byte
+               on every rank, and each rank's K4 lists must equal the
+               single launch's rows.
 
 Each path's kernel launch counts are set to 0 just before it is driven and
 read just after.  The line before last is the card as `nvidia-smi` reports
@@ -1235,7 +1247,7 @@ def _check_path_kernels(l3d, tag):
         require(all(abs(g - w) <= k1_bad for g, w in zip(mine, want)),
                 f"{tag}: view {v}'s probe counters differ from the twin's")
 
-        vm_d, row_d, med_d, o = engine.match_and_select_view(ctx, v, nb)
+        vm_d, row_d, med_d, o = _match_one(ctx, l3d.neighbors, v)
         require(vm_d.m_total == M and vm_d.overflow == 0,
                 f"{tag}: view {v} was not re-matched at its run's width")
         if v == min(views):
@@ -1347,6 +1359,15 @@ def render_view(segs, width, height):
     return np.rint(f).astype(np.uint8)
 
 
+def _wp_views(scene):
+    """{worldpoint: the views that see it}."""
+    out = {}
+    for v in range(scene.num_views):
+        for wp in scene.wp_lists[v]:
+            out.setdefault(wp, []).append(v)
+    return out
+
+
 def write_facade_dataset(root, scene, cams):
     """A VisualSfM dataset of the facade scene in `root`: each view's
     projected segments rendered to a binary PGM, and `scene.nvm` (NVM_V3 as
@@ -1360,10 +1381,7 @@ def write_facade_dataset(root, scene, cams):
         with open(os.path.join(root, f"view_{v:03d}.pgm"), "wb") as f:
             f.write(f"P5\n{w} {h}\n255\n".encode())
             f.write(img.tobytes())
-    wp_views = {}
-    for v in range(V):
-        for wp in scene.wp_lists[v]:
-            wp_views.setdefault(wp, []).append(v)
+    wp_views = _wp_views(scene)
     lines = ["NVM_V3", "", f"{V}"]
     for v in range(V):
         lines.append(
@@ -1518,8 +1536,103 @@ def run_cli_dataset(root, scene, cams, gt_lines, tag, extra=()):
                 t_match_host_selection=l3d2.stats["t_match"],
                 t_first=t_first, t_second=t_second, lines=st["num_lines"],
                 err=err, counts=counts, trace_names=seen, held=held,
+                txt=first,
                 segs=(int(n_segs.min()), int(np.median(n_segs)),
                       int(n_segs.max())))
+
+
+def png_writer():
+    """(library, write(path, gray uint8 image)) of the first image library
+    that imports, cv2 then PIL; (None, None) when neither does (the port
+    itself reads .jpg / .png, which the bundler layout names, only
+    through one of them)."""
+    try:
+        import cv2
+        return "cv2", lambda path, img: cv2.imwrite(path, img)
+    except ImportError:
+        pass
+    try:
+        from PIL import Image
+        return "PIL", lambda path, img: Image.fromarray(img).save(path)
+    except ImportError:
+        return None, None
+
+
+def write_bundler_dataset(root, vsfm_root, scene, cams, write):
+    """A bundler dataset of the facade in `root`: `vsfm_root`'s rendered
+    PGM views (write_facade_dataset) as visualize/%08d.png, and
+    bundle.rd.out (focal, no distortion, R and t with the loader's sign
+    flips undone, main_bundler.cpp:159-176; one worldpoint per 3D line)."""
+    V = scene.num_views
+    os.makedirs(os.path.join(root, "visualize"))
+    for v in range(V):
+        w, h = int(cams.width[v]), int(cams.height[v])
+        head = f"P5\n{w} {h}\n255\n".encode()
+        img = np.fromfile(os.path.join(vsfm_root, f"view_{v:03d}.pgm"),
+                          np.uint8, offset=len(head)).reshape(h, w)
+        write(os.path.join(root, "visualize", f"{v:08d}.png"), img)
+    wp_views = _wp_views(scene)
+    lines = ["# Bundle file v0.3", f"{V} {len(wp_views)}"]
+    for v in range(V):
+        R, t = cams.R[v].copy(), cams.t[v].copy()
+        R[1:3] *= -1.0
+        t[1:3] *= -1.0
+        lines.append(f"{cams.K[v][0, 0]:.6f} 0 0")
+        lines += [" ".join(f"{x:.12f}" for x in R[r]) for r in range(3)]
+        lines.append(" ".join(f"{x:.12f}" for x in t))
+    for wp in sorted(wp_views):
+        lines += ["0 0 0", "128 128 128",
+                  f"{len(wp_views[wp])}" + "".join(f" {v} 0 0.0 0.0"
+                                                   for v in wp_views[wp])]
+    with open(os.path.join(root, "bundle.rd.out"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+
+
+def run_bundler_dataset(root, vsfm_root, scene, cams, gt_lines, vsfm_txt,
+                        tag, extra=()):
+    """`cli.main(["bundler", ...])` once on the facade images of phase cli
+    written as PNG, held as the vsfm run is (one stamped TXT and STL, on
+    the card, no overflow, the median distance to the ground truth);
+    whether its TXT equals the vsfm run's is logged.  Returns a dict, or
+    None (logged) when no image library imports."""
+    import glob
+    from line3d_tpu_torch import cli
+    lib, write = png_writer()
+    if write is None:
+        log(f"[{tag}] bundler: neither cv2 nor PIL imports here, so no "
+            f".png can be written or read; the bundler CLI was not run")
+        return None
+    t0 = time.perf_counter()
+    write_bundler_dataset(root, vsfm_root, scene, cams, write)
+    t_write = time.perf_counter() - t0
+    with spy(cli, "_finish", []) as calls:
+        def run():
+            t0 = time.perf_counter()
+            cli.main(["bundler", "-i", root] + list(extra))
+            return calls[-1][0][0], time.perf_counter() - t0
+        (l3d, t), counts = _counted(run, tag)
+    st = l3d.stats
+    out_dir = os.path.join(root, "Line3D")
+    txts = glob.glob(os.path.join(out_dir, "line3D_result_*.txt"))
+    stls = glob.glob(os.path.join(out_dir, "line3D_result_*.stl"))
+    require(len(txts) == 1 and len(stls) == 1 and
+            os.path.basename(txts[0]).startswith("line3D_result__W_"),
+            f"{tag}: bundler: expected one stamped TXT and STL")
+    require(l3d.device.type == "cuda", f"{tag}: bundler: not on the card")
+    require(st["num_lines"] > 0 and st["match_overflow"] == 0,
+            f"{tag}: bundler: no model")
+    err, n3d = model_error(l3d.get_result(), gt_lines)
+    with open(txts[0], "rb") as f:
+        same = f.read() == vsfm_txt
+    log(f"[{tag}] bundler ({lib} wrote {scene.num_views} PNG in "
+        f"{t_write:.2f} s): {t:.2f} s, t_detect {st['t_detect']:.3f} s, "
+        f"t_match {st['t_match']:.3f} s, {st['num_lines']} lines, {n3d} 3D "
+        f"segments, median distance to the ground truth {err:.5f}; TXT "
+        f"equal to the vsfm run's byte for byte {same}; launches {counts}")
+    require(err < CLI_MEDIAN_ERR_MAX,
+            f"{tag}: bundler: median distance to the ground truth {err}")
+    return dict(library=lib, seconds=t, err=err, lines=st["num_lines"],
+                same_txt_as_vsfm=same, counts=counts)
 
 
 # the bound on phase cli's median distance of the model's 3D segments to
@@ -1536,6 +1649,9 @@ def phase_cli(card):
     gt = facade_lines(n_cols=12, n_rows=10, seed=11)
     with tempfile.TemporaryDirectory() as root:
         r = run_cli_dataset(root, scene, cams, gt, "cli")
+        r["bundler"] = run_bundler_dataset(
+            os.path.join(root, "bundler"), root, scene, cams, gt, r["txt"],
+            "cli")
     require(r["err"] < CLI_MEDIAN_ERR_MAX,
             f"cli: median distance to the ground truth {r['err']}")
     require(all(n > 0 for n in r["trace_names"].values()),
@@ -1638,16 +1754,26 @@ def phase_facade(card):
                 host_selection_t_match=host_match, syncs=syncs)
 
 
-# host synchronisations of one exact view's match_and_select_view with
-# device selection: the probe counters, the export's masked_select, the
-# selection buffer's copy
+# host synchronisations of one exact view's match step with device
+# selection: the probe counters, the export's masked_select, the selection
+# buffer's copy
 VIEW_SYNCS_MAX = 3
+
+
+def _match_one(ctx, neighbors, v):
+    """View v's match step as the pipeline runs it (`engine.match_views`
+    of the one view): (ViewMatches, best row, median, the card tables)."""
+    from line3d_tpu_torch.match import engine
+    tables = {}
+    (vm, row, med), = engine.match_views(ctx, neighbors, [v],
+                                         tables=tables).values()
+    return vm, row, med, tables[v]
 
 
 def _hold_selection(ctx, v, nb, table, got, tag):
     """Device selection against the host selection on the same card
     tables: `got` = (ViewMatches, best row, median) of a device-selected
-    match_and_select_view, `table` its card tables, copied here to the
+    match step (_match_one), `table` its card tables, copied here to the
     host for `_select_view_outputs`.  Identities (in order), best rows and
     median must be equal; the device-selected ViewMatches holds no depths
     or confidences.  Then one more call, counting its host
@@ -1664,8 +1790,7 @@ def _hold_selection(ctx, v, nb, table, got, tag):
     same_best = (row_d is None) == (row_h is None) and (
         row_h is None or all(np.array_equal(row_d[k], row_h[k])
                              for k in row_h))
-    n_syncs, _ = count_syncs(
-        lambda: engine.match_and_select_view(ctx, v, nb))
+    n_syncs, _ = count_syncs(lambda: engine.match_views(ctx, {v: nb}, [v]))
     log(f"[{tag}] view {v}: device selection vs host selection on the same "
         f"card tables: {len(vm_d.src_seg)} verified identities equal "
         f"{same_ids}, {0 if row_h is None else len(row_h['seg'])} best rows "
@@ -1701,9 +1826,9 @@ def _check_view_on_cpu(l3d, ctx_g, ctx_c, v):
         return planes["g"]
     try:
         engine.pair_valid = card_planes
-        vm_g, bg, med_g, tg = engine.match_and_select_view(ctx_g, v, nb)
+        vm_g, bg, med_g, tg = _match_one(ctx_g, l3d.neighbors, v)
         engine.pair_valid = lambda *a: planes["g"].cpu()
-        _, bc, _, tc = engine.match_and_select_view(ctx_c, v, nb)
+        _, bc, _, tc = _match_one(ctx_c, l3d.neighbors, v)
     finally:
         engine.pair_valid = k1.pair_valid
     mine = l3d.best.view == v
@@ -1795,6 +1920,227 @@ def _compare_best(bg, bc, rg, rc, flip_rows):
     return n_same, ties, flipped, bad
 
 
+# phase multiproc: the facade over max(2, cards) ranks over gloo on
+# 127.0.0.1, rank r on cuda:{r % cards} (two ranks share the card of a
+# one-card machine).  The script starts itself once per rank with this
+# variable set to "port,rank,ranks,outdir"; a rank that fails, hangs past
+# MULTIPROC_TIMEOUT_S or writes another model fails the phase.
+MULTIPROC_ENV = "L3D_CHIP_SMOKE_RANK"
+MULTIPROC_MIN_RANKS = 2
+MULTIPROC_TIMEOUT_S = 300
+
+
+@contextlib.contextmanager
+def _gathered_by(module, name, key, sink):
+    """Add to sink[key] the bytes this rank receives from the others
+    (multihost.GATHERED_BYTES) inside every call of module.name."""
+    from line3d_tpu_torch.parallel import multihost
+    orig = getattr(module, name)
+
+    def wrapped(*a, **k):
+        b0 = multihost.GATHERED_BYTES
+        try:
+            return orig(*a, **k)
+        finally:
+            sink[key] = sink.get(key, 0) + multihost.GATHERED_BYTES - b0
+    setattr(module, name, wrapped)
+    try:
+        yield sink
+    finally:
+        setattr(module, name, orig)
+
+
+def multiproc_rank(spec: str) -> int:
+    """One rank of phase multiproc: the facade exact run (one cold, one
+    counted warm run) and the capped run (capacity_probe=False, whose
+    overflowing views their owners re-match), on this rank's card.  Writes
+    each model's TXT, the rank's K4 pair lists and its figures to the
+    output directory."""
+    import torch
+    import torch.distributed as dist
+    from line3d_tpu_torch import Line3D, L3DConfig, pipeline
+    from line3d_tpu_torch.cluster import affinity
+    from line3d_tpu_torch.match import collinearity, engine
+    from line3d_tpu_torch.parallel import multihost
+    from line3d_tpu_torch.utils.demo import make_facade_scene
+    port, rank, nproc, outdir = spec.split(",")
+    rank, nproc = int(rank), int(nproc)
+    require(multihost.initialize(f"127.0.0.1:{port}", nproc, rank,
+                                 timeout_s=MULTIPROC_TIMEOUT_S),
+            "multiproc: no process group")
+    tag = f"multiproc rank {rank}"
+    cfg = L3DConfig()
+    scene, cams = make_facade_scene(num_views=25, config=cfg)
+    dev = scene.device
+    V = scene.num_views
+    lo, hi = multihost.my_view_range(V, rank, nproc)
+    log(f"[{tag}] {torch.cuda.get_device_name(dev)} as {dev} "
+        f"({torch.cuda.device_count()} card(s)); views [{lo}, {hi}) of {V}")
+    require(dev == torch.device("cuda", rank % torch.cuda.device_count()),
+            f"{tag}: Line3D's card is {dev}")
+
+    def runner(c):
+        def run():
+            l3d = feed(Line3D(config=c), scene, cams)
+            t0 = time.perf_counter()
+            l3d.compute_3d_model()
+            torch.cuda.synchronize(dev)
+            return l3d, time.perf_counter() - t0
+        return run
+
+    out = dict(rank=rank, lo=lo, hi=hi, device=str(dev))
+    l3d, out["cold"] = runner(cfg)()
+    stage_bytes, sweeps = {}, []
+    with spy(collinearity, "collinearity_compact_all", []) as k4calls, \
+            spy(affinity, "_finalize_candidates", sweeps), \
+            contextlib.ExitStack() as stack:
+        for module, name, key in (
+                (pipeline, "collinearity_maps_fast", "collinearity"),
+                (engine, "match_views", "matching"),
+                (affinity, "_finalize_candidates", "affinity")):
+            stack.enter_context(_gathered_by(module, name, key,
+                                             stage_bytes))
+        (l3d, out["warm"]), out["counts"] = _counted(runner(cfg), tag)
+    st = l3d.stats
+    out.update(t_match=st["t_match"], t_collin=st["t_collin"],
+               gathered_bytes=st["gathered_bytes"], stage_bytes=stage_bytes,
+               sweep_candidates=len(sweeps[-1][0][1]) if sweeps else 0,
+               views_local=st["views_local"], lines=st["num_lines"])
+    log(f"[{tag}] exact: cold {out['cold']:.3f} s, warm {out['warm']:.3f} s"
+        f" (t_collin {st['t_collin']:.3f}, t_match {st['t_match']:.3f}, "
+        f"t_cluster {st['t_cluster']:.3f} s), {st['num_lines']} lines; "
+        f"received {st['gathered_bytes']} bytes from the other ranks, by "
+        f"stage {stage_bytes} (the weight sweep split over "
+        f"{out['sweep_candidates']} candidates); launches {out['counts']}")
+    require(st["num_processes"] == nproc and st["views_local"] == hi - lo,
+            f"{tag}: stats do not show the rank's share")
+    require(out["counts"]["pair_valid"] == hi - lo and
+            out["counts"]["score"] == hi - lo,
+            f"{tag}: K1 or the scoring kernel ran for other views than "
+            f"its own {hi - lo}")
+    pairs, w, count = (x.cpu().numpy() for x in k4calls[-1][2])
+    np.savez(os.path.join(outdir, f"k4_{rank}.npz"), pairs=pairs, w=w,
+             count=count)
+    with open(os.path.join(outdir, f"exact_{rank}.txt"), "w") as f:
+        f.write(_txt_text(l3d))
+
+    cfg_b = L3DConfig(capacity_probe=False)
+    with spy(engine, "rematch_views_exact", []) as rcalls:
+        (l3d, out["capped_s"]), out["counts_capped"] = _counted(
+            runner(cfg_b), tag)
+    mine = [v for v in rcalls[-1][0][4] if lo <= v < hi] if rcalls else []
+    st = l3d.stats
+    out.update(capped_rematched=st["views_rematched_uncapped"],
+               capped_rematched_local=len(mine),
+               capped_gathered_bytes=st["gathered_bytes"])
+    log(f"[{tag}] capped (capacity_probe=False): {out['capped_s']:.3f} s, "
+        f"overflow {st['match_overflow']}, {st['views_rematched_uncapped']} "
+        f"views re-matched, {len(mine)} of them here {mine}; received "
+        f"{st['gathered_bytes']} bytes; launches {out['counts_capped']}")
+    require(st["views_rematched_uncapped"] > 0 and
+            out["counts_capped"]["pair_valid"] == hi - lo + len(mine),
+            f"{tag}: the owners did not re-match the overflowing views")
+    with open(os.path.join(outdir, f"capped_{rank}.txt"), "w") as f:
+        f.write(_txt_text(l3d))
+    with open(os.path.join(outdir, f"rank_{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def phase_multiproc(card, fa):
+    """The facade over max(MULTIPROC_MIN_RANKS, cards) processes (phase 14
+    of the module
+    docstring): each rank's model must be phase facade's TXT byte for
+    byte, exact and capped, and its K4 lists the single launch's rows."""
+    import socket
+    import torch
+    from line3d_tpu_torch import L3DConfig
+    from line3d_tpu_torch.match import collinearity
+    from line3d_tpu_torch.utils.demo import make_facade_scene
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    here = os.path.dirname(os.path.abspath(__file__))
+    n_ranks = max(MULTIPROC_MIN_RANKS, torch.cuda.device_count())
+    with tempfile.TemporaryDirectory() as outdir:
+        t0 = time.perf_counter()
+        procs, logs = [], []
+        for r in range(n_ranks):
+            env = dict(os.environ)
+            env[MULTIPROC_ENV] = f"{port},{r},{n_ranks},{outdir}"
+            logs.append(os.path.join(outdir, f"log_{r}.txt"))
+            with open(logs[-1], "w") as f:
+                procs.append(subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__)], cwd=here,
+                    env=env, stdout=f, stderr=subprocess.STDOUT))
+        hung = False
+        try:
+            for p in procs:
+                p.wait(timeout=max(1.0, t0 + MULTIPROC_TIMEOUT_S
+                                   - time.perf_counter()))
+        except subprocess.TimeoutExpired:
+            hung = True
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        wall = time.perf_counter() - t0
+        for r, (p, path) in enumerate(zip(procs, logs)):
+            with open(path) as f:
+                for ln in f.read().splitlines():
+                    if ln.startswith("[multiproc") or p.returncode:
+                        log(f"[multiproc]   rank {r}: {ln}")
+        require(not hung, f"multiproc: a rank hung past "
+                f"{MULTIPROC_TIMEOUT_S} s")
+        for r, p in enumerate(procs):
+            require(p.returncode == 0, f"multiproc: rank {r} failed "
+                    f"({p.returncode})")
+        ranks = []
+        for r in range(n_ranks):
+            with open(os.path.join(outdir, f"rank_{r}.json")) as f:
+                ranks.append(json.load(f))
+            for kind in ("exact", "capped"):
+                with open(os.path.join(outdir, f"{kind}_{r}.txt")) as f:
+                    require(f.read() == fa["txt"], f"multiproc: rank {r}'s "
+                            f"{kind} model differs from phase facade's")
+            ranks[r]["k4"] = dict(np.load(os.path.join(outdir,
+                                                       f"k4_{r}.npz")))
+    # each rank's K4 lists against one launch over all 25 views
+    cfg = L3DConfig()
+    scene, _ = make_facade_scene(num_views=25, config=cfg)
+    one = [x.cpu().numpy() for x in collinearity.collinearity_compact_all(
+        scene.segments_t, scene.seg_mask_t,
+        np.float32(cfg.collinearity_sigma * cfg.collinearity_sigma),
+        quota=cfg.collinearity_block_quota,
+        pairs_per_seg=cfg.collinearity_pairs_per_seg,
+        aff_threshold=cfg.collinearity_aff_threshold)]
+    torch.cuda.synchronize()
+    n_pairs = 0
+    for r in ranks:
+        sl = slice(r["lo"], r["hi"])
+        same = all(np.array_equal(r["k4"][k], x[sl])
+                   for k, x in zip(("pairs", "w", "count"), one))
+        n_pairs += int((r["k4"]["pairs"] >= 0).sum())
+        require(same, f"multiproc: rank {r['rank']}'s K4 lists differ from "
+                f"the single launch's rows [{r['lo']}, {r['hi']})")
+    log(f"[multiproc] {n_ranks} ranks in {wall:.1f} s wall (each "
+        f"process from its start: CUDA, the scene, a cold, a warm and a "
+        f"capped run): every rank's TXT equal phase facade's byte for byte, "
+        f"exact and capped; the ranks' K4 lists ({n_pairs} pairs) equal "
+        f"the single launch's rows; per rank (views, warm s, t_match s, "
+        f"bytes received): "
+        + "; ".join(f"{r['device']} [{r['lo']}, {r['hi']}) {r['warm']:.3f}"
+                    f" {r['t_match']:.3f} {r['gathered_bytes']} "
+                    f"{r['stage_bytes']}" for r in ranks)
+        + f"; phase facade's warm seconds {fa['warm']} on {card}")
+    for r in ranks:
+        del r["k4"]
+    return dict(wall=wall, ranks=ranks)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1803,6 +2149,8 @@ def main() -> int:
         return 2
     import line3d_tpu_torch  # noqa: F401  (fails outside a checkout)
     require("jax" not in sys.modules, "JAX was imported")
+    if os.environ.get(MULTIPROC_ENV):
+        return multiproc_rank(os.environ[MULTIPROC_ENV])
 
     seconds = {}
 
@@ -1826,6 +2174,7 @@ def main() -> int:
     cp = timed("capped", phase_capped, card, fa["txt"])
     sp = timed("stress", phase_stress, card)
     cl = timed("cli", phase_cli, card)
+    mp = timed("multiproc", phase_multiproc, card, fa)
     require("jax" not in sys.modules and "line3d_tpu" not in sys.modules,
             "JAX or line3d_tpu was imported")
     d2h = (fa["copies"] or {}).get("DtoH", {})
@@ -1861,7 +2210,14 @@ def main() -> int:
                                      cp["c"]["counts"][key]],
                     launches_stress=sp["counts"][key],
                     launches_cli=cl["counts"][key],
-                    held_at_cli_shapes=held_cli[key])
+                    held_at_cli_shapes=held_cli[key],
+                    **multiproc_launches(key))
+
+    def multiproc_launches(key):
+        return dict(launches_multiproc=[r["counts"][key]
+                                        for r in mp["ranks"]],
+                    launches_multiproc_capped=[r["counts_capped"][key]
+                                               for r in mp["ranks"]])
     kernels = [
         dict(name="pair_valid (K1)", route="cuda",
              source="line3d_tpu_torch/csrc/pair_valid.cu",
@@ -1892,6 +2248,7 @@ def main() -> int:
              replaces="line3d_tpu/match/pairwise_pallas.py:203",
              path="validate", launches=k5["launches"],
              launches_per_facade_run=cnt["pair_dense"], library_ms=None,
+             **multiproc_launches("pair_dense"),
              **{key: k5[key] for key in ("max_abs_err", "ms", "plain_ms",
                                          "bound_ms", "bound_by")}),
         dict(name="fma_peak (K6)", route="cuda",
@@ -1899,6 +2256,7 @@ def main() -> int:
              replaces="bench.py:398", path="peak",
              launches=k6["launches"],
              launches_per_facade_run=cnt["fma_peak"], library_ms=None,
+             **multiproc_launches("fma_peak"),
              **{key: k6[key] for key in ("max_abs_err", "ms", "plain_ms",
                                          "bound_ms", "bound_by",
                                          "tflops")}),

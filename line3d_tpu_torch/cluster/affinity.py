@@ -24,8 +24,11 @@ are order-dependent and preserved here.
 The per-pair 3D similarity (similarity_coll3D, line3D.cc:1600-1681) is
 evaluated vectorized over all candidate pairs after enumeration.
 
-Host numpy + native C++ copy of `line3d_tpu/cluster/affinity.py`, single-
-host path only (the multi-process finalize waits for the `parallel/` port).
+Host numpy + native C++ copy of `line3d_tpu/cluster/affinity.py`.  Under N
+processes (`parallel.multihost`) the finalize's weight sweep is split by
+candidate range across the ranks and gathered as float64 bits
+(`_finalize_candidates`); the enumeration and the emission run replicated,
+so every rank builds the single-process graph.
 """
 from __future__ import annotations
 
@@ -37,6 +40,7 @@ from ..config import L3DConfig
 from ..core.cameras import CameraSet
 from ..match.engine import BestMatches
 from ..native.load import get_lib
+from ..parallel import multihost
 
 
 @dataclasses.dataclass
@@ -239,36 +243,61 @@ def _finalize_candidates(best, src_rows, tgt_rows, kinds, cws,
                          cams, config, verbose):
     """Shared tail of every enumerator: similarity, weights, per-kind
     thresholds, node-id assignment in emission order (line3D.cc:1019-1050),
-    symmetric edge list.  Large streams dispatch to the fused native pass
-    (affinity_finalize — one OpenMP similarity+weight+threshold sweep plus
-    one sequential emission pass; the numpy tail below makes ~10 passes
-    over the stream and was the largest single cost of the 1000-view
-    cluster stage)."""
-    if not len(src_rows):
+    symmetric edge list.  The weight sweep, the parallel part, covers this
+    rank's candidate range (`multihost.local_range`: the whole stream in a
+    single process) and the slices are all-gathered as float64 bits; the
+    sequential emission then runs over the whole stream on every rank, so
+    every rank builds the single-process graph (line3d_tpu's
+    _finalize_candidates_sharded, affinity.py:489-524 there).  The
+    enumeration is replicated, so only the weight slices cross."""
+    n = len(src_rows)
+    if not n:
         return AffinityGraph(np.zeros(0, np.int32), np.zeros(0, np.int32),
                              np.zeros(0, np.float32),
                              np.zeros(0, np.int32), np.zeros(0, np.int32), 0)
-
-    if len(src_rows) > NATIVE_SIM_THRESHOLD:
-        return _finalize_candidates_native(
-            get_lib(), best, src_rows, tgt_rows, kinds, cws, cams, config,
-            verbose)
-
-    w = _candidate_weights(best, src_rows, tgt_rows, kinds, cws, cams,
-                           config)
+    lo, hi = multihost.local_range(n)
+    w = np.concatenate(multihost.allgather_array(_candidate_weights_range(
+        best, src_rows, tgt_rows, kinds, cws, cams, config, lo, hi)))
+    if len(w) != n:
+        raise RuntimeError(f"gathered {len(w)} weights for {n} candidates")
     return _emit_graph(best, src_rows, tgt_rows, w, verbose)
 
 
-def _candidate_weights(best, src_rows, tgt_rows, kinds, cws, cams,
-                       config) -> np.ndarray:
-    """Thresholded edge weights of the candidates: w when it passes its
-    kind's threshold, -1.0 sentinel otherwise (numpy; large streams take
-    the fused native finalize instead)."""
-    sim = similarity_coll3d(cams, best, src_rows, tgt_rows, config.sigma_a)
-    base = 0.5 * (best.score[src_rows].astype(np.float64) +
-                  best.score[tgt_rows].astype(np.float64))
-    w = np.where(kinds == 2, cws, 1.0) * base * sim
-    thr = np.where(kinds == 0, config.min_affinity,
+def _candidate_weights_range(best, src_rows, tgt_rows, kinds, cws,
+                             cams, config, lo: int, hi: int) -> np.ndarray:
+    """Thresholded edge weights of the candidate slice [lo, hi): w when it
+    passes its kind's threshold, -1.0 sentinel otherwise.  The native
+    OpenMP sweep (affinity_weights_range) or numpy, chosen on the TOTAL
+    stream length, not the slice's, so a rank takes the native sweep
+    exactly when one process would: otherwise the numpy and libm roundings
+    would let the process count decide marginal threshold passes."""
+    if len(src_rows) > NATIVE_SIM_THRESHOLD:
+        w = np.empty(hi - lo, np.float64)
+        get_lib().affinity_weights_range(
+            np.ascontiguousarray(src_rows, np.int64),
+            np.ascontiguousarray(tgt_rows, np.int64),
+            np.ascontiguousarray(kinds, np.int8),
+            np.ascontiguousarray(cws, np.float64), lo, hi,
+            np.ascontiguousarray(best.score, np.float32),
+            np.ascontiguousarray(best.P1, np.float64),
+            np.ascontiguousarray(best.P2, np.float64),
+            np.ascontiguousarray(best.dir, np.float64),
+            np.ascontiguousarray(best.d1, np.float32),
+            np.ascontiguousarray(best.d2, np.float32),
+            np.ascontiguousarray(best.view, np.int32),
+            np.ascontiguousarray(cams.k_lower, np.float64),
+            np.ascontiguousarray(cams.k_upper, np.float64),
+            np.ascontiguousarray(cams.median_depth, np.float64),
+            float(config.sigma_a), float(config.min_affinity),
+            float(config.collinear_affinity), w)
+        return w
+    sl = slice(lo, hi)
+    sim = similarity_coll3d(cams, best, src_rows[sl], tgt_rows[sl],
+                            config.sigma_a)
+    base = 0.5 * (best.score[src_rows[sl]].astype(np.float64) +
+                  best.score[tgt_rows[sl]].astype(np.float64))
+    w = np.where(kinds[sl] == 2, cws[sl], 1.0) * base * sim
+    thr = np.where(kinds[sl] == 0, config.min_affinity,
                    config.collinear_affinity)
     return np.where(w > thr, w, -1.0)
 
@@ -276,36 +305,53 @@ def _candidate_weights(best, src_rows, tgt_rows, kinds, cws, cams,
 def _emit_graph(best, src_rows, tgt_rows, w, verbose):
     """Emission-order graph assembly from sentinel weights (-1 = dropped):
     node ids at first touch + interleaved symmetric edges
-    (line3D.cc:1019-1050), for streams below NATIVE_SIM_THRESHOLD (larger
-    ones take the fused native finalize)."""
-    passed = w >= 0.0
-    src_rows, tgt_rows, w = src_rows[passed], tgt_rows[passed], w[passed]
+    (line3D.cc:1019-1050).  The native sequential pass (affinity_emit) for
+    streams above NATIVE_SIM_THRESHOLD, numpy below."""
+    if len(src_rows) > NATIVE_SIM_THRESHOLD:
+        n = len(src_rows)
+        B = best.view.size
+        edges_i = np.empty(2 * n, np.int32)
+        edges_j = np.empty(2 * n, np.int32)
+        edges_w = np.empty(2 * n, np.float32)
+        node_rows = np.empty(B, np.int64)
+        n_nodes = np.zeros(1, np.int64)
+        E = get_lib().affinity_emit(
+            np.ascontiguousarray(w, np.float64),
+            np.ascontiguousarray(src_rows, np.int64),
+            np.ascontiguousarray(tgt_rows, np.int64), n, B,
+            edges_i, edges_j, edges_w, node_rows, n_nodes)
+        ei, ej, ew = (x[:2 * E].copy() for x in (edges_i, edges_j, edges_w))
+        node_rows = node_rows[:int(n_nodes[0])]
+    else:
+        passed = w >= 0.0
+        src_rows, tgt_rows, w = src_rows[passed], tgt_rows[passed], w[passed]
 
-    # --- node ids in emission order ---------------------------------------
-    # first-occurrence position per row via a reverse-order scatter (the
-    # last store wins, so storing positions in reverse leaves the FIRST),
-    # then sort only the ~#nodes first-positions — replaces an
-    # np.unique(return_index) sort over the 2E-element stream (~5x at
-    # 1000-view scale)
-    seq = np.empty(2 * len(src_rows), np.int64)
-    seq[0::2] = src_rows
-    seq[1::2] = tgt_rows
-    first_pos = np.full(best.view.size, -1, np.int64)
-    first_pos[seq[::-1]] = np.arange(len(seq) - 1, -1, -1)
-    rows_used = np.flatnonzero(first_pos >= 0)
-    node_rows = rows_used[np.argsort(first_pos[rows_used], kind="stable")]
-    node_of = np.full(best.view.size, -1, np.int64)
-    node_of[node_rows] = np.arange(len(node_rows))
+        # --- node ids in emission order -----------------------------------
+        # first-occurrence position per row via a reverse-order scatter (the
+        # last store wins, so storing positions in reverse leaves the FIRST),
+        # then sort only the ~#nodes first-positions — replaces an
+        # np.unique(return_index) sort over the 2E-element stream (~5x at
+        # 1000-view scale)
+        seq = np.empty(2 * len(src_rows), np.int64)
+        seq[0::2] = src_rows
+        seq[1::2] = tgt_rows
+        first_pos = np.full(best.view.size, -1, np.int64)
+        first_pos[seq[::-1]] = np.arange(len(seq) - 1, -1, -1)
+        rows_used = np.flatnonzero(first_pos >= 0)
+        node_rows = rows_used[np.argsort(first_pos[rows_used],
+                                         kind="stable")]
+        node_of = np.full(best.view.size, -1, np.int64)
+        node_of[node_rows] = np.arange(len(node_rows))
 
-    a = node_of[src_rows]
-    b = node_of[tgt_rows]
-    E = len(a)
-    ei = np.empty(2 * E, np.int32)
-    ej = np.empty(2 * E, np.int32)
-    ew = np.empty(2 * E, np.float32)
-    ei[0::2] = a; ej[0::2] = b
-    ei[1::2] = b; ej[1::2] = a
-    ew[0::2] = w; ew[1::2] = w
+        a = node_of[src_rows]
+        b = node_of[tgt_rows]
+        E = len(a)
+        ei = np.empty(2 * E, np.int32)
+        ej = np.empty(2 * E, np.int32)
+        ew = np.empty(2 * E, np.float32)
+        ei[0::2] = a; ej[0::2] = b
+        ei[1::2] = b; ej[1::2] = a
+        ew[0::2] = w; ew[1::2] = w
 
     if verbose:
         print(f"[L3D] A: #num_entries = {len(ei)}")
@@ -315,48 +361,6 @@ def _emit_graph(best, src_rows, tgt_rows, w, verbose):
         node_view=best.view[node_rows].astype(np.int32),
         node_seg=best.seg[node_rows].astype(np.int32),
         num_nodes=len(node_rows))
-
-
-def _finalize_candidates_native(lib, best, src_rows, tgt_rows, kinds, cws,
-                                cams, config, verbose):
-    """Fused native finalize (affinity_enum.cpp:affinity_finalize);
-    edge-for-edge identical to the numpy tail (tests/test_affinity.py)."""
-    n = len(src_rows)
-    B = best.view.size
-    edges_i = np.empty(2 * n, np.int32)
-    edges_j = np.empty(2 * n, np.int32)
-    edges_w = np.empty(2 * n, np.float32)
-    node_rows = np.empty(B, np.int64)
-    n_nodes = np.zeros(1, np.int64)
-    E = lib.affinity_finalize(
-        np.ascontiguousarray(src_rows, np.int64),
-        np.ascontiguousarray(tgt_rows, np.int64),
-        np.ascontiguousarray(kinds, np.int8),
-        np.ascontiguousarray(cws, np.float64), n,
-        np.ascontiguousarray(best.score, np.float32), B,
-        np.ascontiguousarray(best.P1, np.float64),
-        np.ascontiguousarray(best.P2, np.float64),
-        np.ascontiguousarray(best.dir, np.float64),
-        np.ascontiguousarray(best.d1, np.float32),
-        np.ascontiguousarray(best.d2, np.float32),
-        np.ascontiguousarray(best.view, np.int32),
-        np.ascontiguousarray(cams.k_lower, np.float64),
-        np.ascontiguousarray(cams.k_upper, np.float64),
-        np.ascontiguousarray(cams.median_depth, np.float64),
-        float(config.sigma_a), float(config.min_affinity),
-        float(config.collinear_affinity),
-        edges_i, edges_j, edges_w, node_rows, n_nodes)
-    nn = int(n_nodes[0])
-    node_rows = node_rows[:nn]
-    if verbose:
-        print(f"[L3D] A: #num_entries = {2 * E}")
-        print(f"[L3D] A: #num_rows    = {nn}")
-    return AffinityGraph(
-        edges_i=edges_i[:2 * E].copy(), edges_j=edges_j[:2 * E].copy(),
-        edges_w=edges_w[:2 * E].copy(),
-        node_view=best.view[node_rows].astype(np.int32),
-        node_seg=best.seg[node_rows].astype(np.int32),
-        num_nodes=nn)
 
 
 def _build_affinity_graph_native(lib, best, allp_packed, row_lookup, key_of,

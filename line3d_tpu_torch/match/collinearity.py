@@ -24,6 +24,7 @@ from ..core import geometry as g
 from .collinearity_cuda import block_quota, collin_keep_plain, \
     collin_pairs_cuda, keep_threshold_sq
 from .pairwise import compact_rows_blockq
+from ..parallel import multihost
 
 
 def _two_sigma_sq(coll_sigma_sq, like):
@@ -117,6 +118,13 @@ def _pairs_cap(S: int, K: int, pairs_per_seg: int = 4) -> int:
     return min(S * K, max(8192, pairs_per_seg * S))
 
 
+def pairs_capacity(S: int, quota: int = 8, pairs_per_seg: int = 4) -> int:
+    """C, the width of `collinearity_compact_all`'s per-view lists: the
+    cap over S rows of S // blk blocks of the quota's candidates."""
+    blk, q = block_quota(S, quota)
+    return _pairs_cap(S, S // blk * q, pairs_per_seg)
+
+
 def collinearity_compact_all(segments, masks, coll_sigma_sq, quota=8,
                              pairs_per_seg: int = 4,
                              aff_threshold: float = 0.5):
@@ -136,12 +144,10 @@ def collinearity_compact_all(segments, masks, coll_sigma_sq, quota=8,
         return collinearity_compact_all_plain(
             segments, masks, coll_sigma_sq, quota=quota,
             pairs_per_seg=pairs_per_seg, aff_threshold=aff_threshold)
-    S = segments.shape[1]
-    blk, q = block_quota(S, quota)
     return collin_pairs_cuda(
         segments, masks, keep_threshold_sq(coll_sigma_sq, aff_threshold),
         float(np.float32(coll_sigma_sq)), aff_threshold, quota,
-        _pairs_cap(S, S // blk * q, pairs_per_seg))
+        pairs_capacity(segments.shape[1], quota, pairs_per_seg))
 
 
 def collinearity_compact_all_plain(segments, masks, coll_sigma_sq, quota=8,
@@ -302,11 +308,27 @@ def collinearity_maps_fast(segments, masks, coll_sigma: float,
                            quota: int = 8, pairs_per_seg: int = 4,
                            aff_threshold: float = 0.5):
     """Per-view CollinMaps for [V, S, 4] / [V, S] segment tensors: the
-    compacted device path plus the host finalize."""
-    pairs, w, count = collinearity_compact_all(
-        segments, masks, np.float32(coll_sigma * coll_sigma), quota=quota,
-        pairs_per_seg=pairs_per_seg, aff_threshold=aff_threshold)
-    return collinearity_finalize(pairs.cpu().numpy(), w.cpu().numpy(),
-                                 count.cpu().numpy(),
-                                 max_segments=segments.shape[1],
-                                 num_views=segments.shape[0])
+    compacted device path plus the host finalize.
+
+    Under N processes (`parallel.multihost`) each rank compacts only the
+    views of its range `multihost.local_range(V)` (one K4 launch on its
+    card); the per-view lists are all-gathered, so every rank finalizes
+    every view (line3d_tpu's collinearity over the views mesh,
+    pipeline.py:405-418 there).  A view's list does not depend on the
+    other views of its launch, and the lists carry no view index, so the
+    gathered rows are the single-launch rows."""
+    V, S = masks.shape
+    lo, hi = multihost.local_range(V)
+    if hi > lo:
+        parts = [x.cpu().numpy() for x in collinearity_compact_all(
+            segments[lo:hi], masks[lo:hi],
+            np.float32(coll_sigma * coll_sigma), quota=quota,
+            pairs_per_seg=pairs_per_seg, aff_threshold=aff_threshold)]
+    else:
+        C = pairs_capacity(S, quota, pairs_per_seg)
+        parts = [np.zeros((0, C), np.int32), np.zeros((0, C), np.float32),
+                 np.zeros(0, np.int64)]
+    pairs, w, count = (np.concatenate(multihost.allgather_array(x))
+                       for x in parts)
+    return collinearity_finalize(pairs, w, count, max_segments=S,
+                                 num_views=V)

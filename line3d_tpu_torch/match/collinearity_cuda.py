@@ -107,11 +107,12 @@ def collin_pairs_cuda(segments, masks, thr_sq: float, coll_sigma_sq: float,
     pairs = torch.empty((V, cap), dtype=torch.int32, device=dev)
     w = torch.empty((V, cap), dtype=torch.float32, device=dev)
     count = torch.empty(V, dtype=torch.int64, device=dev)
-    rc = cuda.lib().l3d_collin_pairs(
-        segments.data_ptr(), masks.data_ptr(), V, S, blk, q, float(thr_sq),
-        float(np.float32(2.0 * coll_sigma_sq)), float(aff_threshold), cap,
-        scratch.data_ptr(), pairs.data_ptr(), w.data_ptr(),
-        count.data_ptr(), cuda.stream_of(segments))
+    with cuda.on_device(segments):
+        rc = cuda.lib().l3d_collin_pairs(
+            segments.data_ptr(), masks.data_ptr(), V, S, blk, q,
+            float(thr_sq), float(np.float32(2.0 * coll_sigma_sq)),
+            float(aff_threshold), cap, scratch.data_ptr(), pairs.data_ptr(),
+            w.data_ptr(), count.data_ptr(), cuda.stream_of(segments))
     cuda.check(rc, "l3d_collin_pairs")
     LAUNCHES += 1
     return pairs, w, count

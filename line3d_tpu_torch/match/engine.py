@@ -30,7 +30,11 @@ Every pass also reduces K1's planes to the capacity-probe counters
 launch capacities that `line3d_tpu`'s one-pass mode would use.
 Selection runs on the tables' device by default (`parallel.sharded.
 device_select`, as on `line3d_tpu`'s default path), so the [S, M] tables
-stay there; `_select_view_outputs` is its host twin.
+stay there; `_select_view_outputs` is its host twin.  Under N processes
+(`parallel.multihost`) `match_views` splits the views across the ranks,
+each on its own card, and all-gathers what each view's selection reads
+back, so every rank decodes every view (line3d_tpu's global views mesh,
+engine.py:655-720 there).
 """
 from __future__ import annotations
 
@@ -42,7 +46,7 @@ import torch
 from ..config import L3DConfig
 from ..core.cameras import CameraSet
 from ..scene import Scene
-from ..parallel import sharded
+from ..parallel import multihost, sharded
 from . import pairwise
 from .pairwise_cuda import pair_valid
 from .scoring_cuda import score
@@ -54,8 +58,8 @@ class ViewMatches:
 
     The identities (src_seg, tgt_view, tgt_seg) are what clustering reads
     (cluster/affinity.py).  `depths` and `confidence` are filled only by
-    the host selection (`match_and_select_view(..., device_selection=
-    False)`, `Line3D(use_sharded_engine=False)`); under device selection,
+    the host selection (`match_views(..., device_selection=False)`,
+    `Line3D(use_sharded_engine=False)`); under device selection,
     the default, they are None, as on `line3d_tpu`'s default path."""
     view: int
     src_seg: np.ndarray      # [K] int32
@@ -319,39 +323,92 @@ def _assemble_view_outputs(ctx: ViewContext, v: int, nb: np.ndarray,
     return vm, best_row, median_depth
 
 
-def match_and_select_view(ctx: ViewContext, v: int, nb: np.ndarray,
-                          verbose: bool = False, caps: tuple | None = None,
-                          device_selection: bool = True):
-    """match_view + selection for one view.  Without `caps` it raises when
-    the exact capacity still overflowed (engine.py:436-439 of line3d_tpu);
-    with them the overflow is counted in the ViewMatches.
+# the per-view counters that cross between ranks beside the selection
+# buffer, in this order
+_COUNTERS = ("need", "total", "blockmax", "nbmax", "m_total")
+
+
+def match_views(ctx: ViewContext, neighbors, views,
+                caps: tuple | None = None, verbose: bool = False,
+                device_selection: bool = True,
+                tables: dict | None = None) -> dict:
+    """match_view + selection for each of `views` that has neighbours:
+    {v: (ViewMatches, best_row | None, median_depth)}, ascending.  Without
+    `caps` a view raises when the exact capacity still overflowed
+    (engine.py:436-439 of line3d_tpu); with them the overflow is counted
+    in the ViewMatches.
 
     With `device_selection` (the default, line3d_tpu's default path) the
     selection runs where the tables live (`parallel.sharded.
     device_select`) and one int32 buffer of O(S + verified) values crosses
     to the host: an exact view synchronises three times (the probe
     counters, the export's masked_select, the buffer's copy), and the
-    ViewMatches holds identities only.  Without it the five tables are
-    copied to the host and `_select_view_outputs` selects there.
+    ViewMatches holds identities only.  Each process matches the views of
+    its range (`multihost.local_range`; all of them in a single process)
+    on its own card, the selection buffers and counters are all-gathered,
+    and every rank assembles every view in view order, so all ranks hold
+    the single-process result.
 
-    Returns (ViewMatches, best_row | None, median_depth, table) where table
-    is the view's match table (cam, tgt, depths, valid, conf) as tensors on
-    the scene's device."""
-    o = match_view(ctx, v, nb, caps)
-    table = {k: o[k] for k in ("cam", "tgt", "depths", "valid", "conf")}
-    if device_selection:
-        buf = sharded.device_select(*table.values(),
-                                    ctx.config.confidence_threshold, len(nb),
-                                    o["overflow"])
-        vm, best_row, med = _assemble_view_outputs(
-            ctx, v, nb, sharded.unpack_selection(buf.cpu().numpy(),
-                                                 ctx.scene.max_segments),
-            verbose=verbose)
-    else:
+    Without it the five tables are copied to the host and
+    `_select_view_outputs` selects there.  Under N > 1 that would gather
+    every view's [S, M] tables, so it raises (line3d_tpu's multi-process
+    path is its sharded engine).
+
+    `tables`, when a dict, receives the match table (cam, tgt, depths,
+    valid, conf) of each view this process matched, as tensors on the
+    scene's device."""
+    views = [int(v) for v in sorted(views) if len(neighbors[v])]
+    nb = {v: np.asarray(neighbors[v], np.int64) for v in views}
+    nproc = multihost.process_count()
+    if not device_selection and nproc > 1:
+        raise ValueError(
+            f"matching over {nproc} processes needs the device selection "
+            "(use_sharded_engine=True): the host selection would gather "
+            "every view's [S, M] match tables")
+    lo, hi = multihost.local_range(ctx.scene.num_views)
+    out, heads, bufs = {}, [], []
+    for v in views:
+        if not lo <= v < hi:
+            continue
+        o = match_view(ctx, v, nb[v], caps)
+        table = {k: o[k] for k in ("cam", "tgt", "depths", "valid", "conf")}
+        if tables is not None:
+            tables[v] = table
+        if device_selection:
+            buf = sharded.device_select(
+                *table.values(), ctx.config.confidence_threshold,
+                len(nb[v]), o["overflow"]).cpu().numpy()
+            heads.append([v, len(buf)] + [o[k] for k in _COUNTERS])
+            bufs.append(buf)
+            continue
         raw = {k: x.cpu().numpy() for k, x in table.items()}
         vm, best_row, med = _select_view_outputs(
-            ctx, v, nb, raw["cam"], raw["tgt"], raw["depths"], raw["valid"],
-            raw["conf"], int(o["overflow"]), verbose=verbose)
+            ctx, v, nb[v], raw["cam"], raw["tgt"], raw["depths"],
+            raw["valid"], raw["conf"], int(o["overflow"]), verbose=verbose)
+        _check_and_count(vm, v, caps, o)
+        out[v] = (vm, best_row, med)
+    if not device_selection:
+        return out
+    heads = np.concatenate(multihost.allgather_array(
+        np.asarray(heads, np.int64).reshape(-1, 2 + len(_COUNTERS))))
+    flat = np.concatenate(multihost.allgather_array(
+        np.concatenate(bufs) if bufs else np.zeros(0, np.int32)))
+    if [int(v) for v in heads[:, 0]] != views:
+        raise RuntimeError(f"gathered views {heads[:, 0].tolist()}, "
+                           f"expected {views}")
+    for row, end in zip(heads.tolist(), np.cumsum(heads[:, 1]).tolist()):
+        v, n = row[0], row[1]
+        vm, best_row, med = _assemble_view_outputs(
+            ctx, v, nb[v], sharded.unpack_selection(
+                flat[end - n:end], ctx.scene.max_segments), verbose=verbose)
+        _check_and_count(vm, v, caps, dict(zip(_COUNTERS, row[2:])))
+        out[v] = (vm, best_row, med)
+    return out
+
+
+def _check_and_count(vm: ViewMatches, v: int, caps: tuple | None, o):
+    """Raise when an exact view overflowed; copy the probe counters and
+    the match-slot width into the ViewMatches."""
     if caps is None and vm.overflow != 0:
         raise AssertionError(
             f"exact matching of view {v} overflowed ({vm.overflow}) at "
@@ -359,7 +416,6 @@ def match_and_select_view(ctx: ViewContext, v: int, nb: np.ndarray,
     vm.need_capacity, vm.total_candidates = o["need"], o["total"]
     vm.block_max, vm.nb_max = o["blockmax"], o["nbmax"]
     vm.m_total = o["m_total"]
-    return vm, best_row, med, table
 
 
 def run_matching(scene: Scene, cameras: CameraSet, neighbors: list,
@@ -369,8 +425,9 @@ def run_matching(scene: Scene, cameras: CameraSet, neighbors: list,
     scene's device: each view at its exact capacity, or with `capped` every
     view at the config's caps (line3d_tpu's run_matching,
     engine.py:296-333), where dropped matches are counted per view.  Each
-    view selects on the device unless `device_selection` is False
-    (match_and_select_view).
+    view selects on the device unless `device_selection` is False; under
+    N processes each rank matches its own views and all ranks get every
+    view's result (match_views).
 
     Returns (list[ViewMatches], BestMatches, median_depths [V] float64).
     Also sets cameras.median_depth (setMedianDepth, line3D.cc:835).
@@ -385,16 +442,13 @@ def run_matching(scene: Scene, cameras: CameraSet, neighbors: list,
     caps = (config.match_block_quota,
             min(config.max_matches_per_segment,
                 n_max * scene.max_segments)) if capped else None
+    per_view = match_views(ctx, neighbors, range(V), caps=caps,
+                           verbose=verbose,
+                           device_selection=device_selection)
     all_matches, best_rows = [], []
     median_depths = np.ones(V)
-    for v in range(V):
-        nb = np.asarray(neighbors[v], np.int64)
-        if len(nb) == 0:
-            continue
-        vm, best_row, median_depths[v], _ = match_and_select_view(
-            ctx, v, nb, verbose=verbose, caps=caps,
-            device_selection=device_selection)
-        cameras.median_depth[v] = median_depths[v]
+    for v, (vm, best_row, med) in per_view.items():
+        median_depths[v] = cameras.median_depth[v] = med
         all_matches.append(vm)
         if best_row is not None:
             best_rows.append(best_row)
@@ -477,19 +531,14 @@ def rematch_views_exact(scene: Scene, cameras: CameraSet, neighbors: list,
 
     Returns {view: (ViewMatches, best_row | None, median_depth)}.
     """
-    ctx = ViewContext(scene, cameras, config)
-    out = {}
-    for v in views:
-        nb = np.asarray(neighbors[v], np.int64)
-        if len(nb) == 0:
-            continue
-        vm, best_row, med, _ = match_and_select_view(
-            ctx, v, nb, verbose=verbose, device_selection=device_selection)
-        if verbose:
+    out = match_views(ViewContext(scene, cameras, config), neighbors,
+                      views, verbose=verbose,
+                      device_selection=device_selection)
+    if verbose:
+        for v, (vm, _, _) in out.items():
             print(f"[L3D] view {v}: re-matched uncapped "
                   f"(capacity {vm.need_capacity} -> m_total {vm.m_total}, "
                   f"{len(vm.src_seg)} verified)")
-        out[v] = (vm, best_row, med)
     return out
 
 

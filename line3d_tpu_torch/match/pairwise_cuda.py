@@ -59,10 +59,11 @@ def pair_valid_cuda(segs_src, mask_src, segs_nb, mask_nb, F_nb,
     N, St = mask_nb.shape
     out = torch.empty((N, segs_src.shape[0], St), dtype=torch.bool,
                       device=segs_src.device)
-    rc = cuda.lib().l3d_pair_valid(*args, out.data_ptr(),
-                                   None if stats is None
-                                   else stats.data_ptr(),
-                                   cuda.stream_of(segs_src))
+    with cuda.on_device(segs_src):
+        rc = cuda.lib().l3d_pair_valid(*args, out.data_ptr(),
+                                       None if stats is None
+                                       else stats.data_ptr(),
+                                       cuda.stream_of(segs_src))
     cuda.check(rc, "l3d_pair_valid")
     LAUNCHES += 1
     return out
@@ -143,9 +144,10 @@ def pair_dense_cuda(segs_src, mask_src, segs_nb, mask_nb, F_nb,
     dev = segs_src.device
     valid = torch.empty((N, Ss, St), dtype=torch.bool, device=dev)
     depths = torch.empty((4, N, Ss, St), dtype=torch.float32, device=dev)
-    rc = cuda.lib().l3d_pair_dense(*args, valid.data_ptr(),
-                                   depths.data_ptr(),
-                                   cuda.stream_of(segs_src))
+    with cuda.on_device(segs_src):
+        rc = cuda.lib().l3d_pair_dense(*args, valid.data_ptr(),
+                                       depths.data_ptr(),
+                                       cuda.stream_of(segs_src))
     cuda.check(rc, "l3d_pair_dense")
     LAUNCHES_DENSE += 1
     return depths, valid

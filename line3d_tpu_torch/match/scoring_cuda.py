@@ -69,12 +69,13 @@ def score_cuda(segs_src, RtKinv_src, C_src, cam, tgt, depths, valid,
     out = torch.empty((S, M), dtype=f32, device=dev)
     params = scoring.kernel_params(sigma_p, sigma_a, spatial_k,
                                    support_threshold)
-    rc = lib.l3d_score(
-        cam.data_ptr(), depths.data_ptr(), valid.data_ptr(),
-        tcoords.data_ptr(), segs_src.data_ptr(), RtKinv_src.data_ptr(),
-        C_src.data_ptr(), P_nb.data_ptr(), *(float(p) for p in params),
-        N, S, M, None if scratch is None else scratch.data_ptr(),
-        out.data_ptr(), dev.index or 0, cuda.stream_of(cam))
+    with cuda.on_device(cam):
+        rc = lib.l3d_score(
+            cam.data_ptr(), depths.data_ptr(), valid.data_ptr(),
+            tcoords.data_ptr(), segs_src.data_ptr(), RtKinv_src.data_ptr(),
+            C_src.data_ptr(), P_nb.data_ptr(), *(float(p) for p in params),
+            N, S, M, None if scratch is None else scratch.data_ptr(),
+            out.data_ptr(), dev.index or 0, cuda.stream_of(cam))
     cuda.check(rc, "l3d_score")
     LAUNCHES += 1
     if M > 256:

@@ -155,6 +155,15 @@ def stream_of(t) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def on_device(t):
+    """A context making tensor `t`'s card the current device.  The CUDA
+    runtime launches on the current device, whatever stream it is handed:
+    every C entry point is called inside it, so that a tensor on cuda:1
+    is not launched in cuda:0's context."""
+    import torch
+    return torch.cuda.device(t.device)
+
+
 def require_cuda(name: str, *tensors, dtypes=None):
     """Wrapper-side checks: every tensor on one CUDA device and
     contiguous (and of the given dtypes, when listed)."""

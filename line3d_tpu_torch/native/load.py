@@ -88,13 +88,14 @@ def get_lib():
                  i32p, f64p, f64p, f64p, ctypes.c_double, f64p], None),
             "affinity_capacity": ([i64p, ctypes.c_int64, i64p,
                                    ctypes.c_int64], ctypes.c_int64),
-            "affinity_finalize": (
-                [i64p, i64p, i8p, f64p, ctypes.c_int64,   # candidates
-                 f32p, ctypes.c_int64,                    # score, B
+            "affinity_weights_range": (
+                [i64p, i64p, i8p, f64p,                   # candidates
+                 ctypes.c_int64, ctypes.c_int64,          # lo, hi
+                 f32p,                                    # score
                  f64p, f64p, f64p, f32p, f32p, i32p,      # best arrays
                  f64p, f64p, f64p,                        # camera arrays
                  ctypes.c_double, ctypes.c_double, ctypes.c_double,
-                 i32p, i32p, f32p, i64p, one_i64], ctypes.c_int64),
+                 f64p], None),                            # w [hi - lo]
             "affinity_emit": (
                 [f64p, i64p, i64p, ctypes.c_int64, ctypes.c_int64,
                  i32p, i32p, f32p, i64p, one_i64], ctypes.c_int64),

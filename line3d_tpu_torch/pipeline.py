@@ -31,6 +31,7 @@ from .detect import detector
 from .fit import lines as fit_lines
 from .io import cache as seg_cache, writers
 from .native import load as native_load
+from .parallel import multihost
 
 
 class Line3D:
@@ -60,6 +61,15 @@ class Line3D:
     run.  On a CUDA device every kernel runs on the card (there is no
     fallback); on `device="cpu"` every kernel runs as its plain PyTorch
     twin.
+
+    Across N processes (`parallel.multihost.initialize` first, or
+    torchrun) every rank builds the same Line3D; "cuda" is then the
+    rank's card, cuda:{local rank % cards}.  Each rank runs collinearity
+    and matching for its own view range only and the host arrays those
+    stages read back are all-gathered over gloo; the cluster stage runs
+    on every rank (its weight sweep split across them), so every rank
+    ends with the single-process model.  That needs the device selection:
+    `use_sharded_engine=False` raises under N > 1.
     """
 
     def __init__(self, data_directory: str | None = None,
@@ -69,6 +79,8 @@ class Line3D:
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Line3D: device 'cuda' requested but "
                                "torch.cuda.is_available() is False")
+        # under N ranks a bare "cuda" is this rank's card
+        self.device = multihost.resolve_device(self.device)
         if self.device.type not in ("cpu", "cuda"):
             raise ValueError(f"Line3D: unsupported device {self.device}")
         self.config = config
@@ -286,6 +298,8 @@ class Line3D:
             raise ValueError("not enough images (need >= 4)")
         self.refined_poses = None     # never leak a previous run's BA poses
 
+        nproc = multihost.process_count()
+        gathered0 = multihost.GATHERED_BYTES
         t0 = time.perf_counter()
         self._build_scene()
         scene, cams = self.scene, self.cameras
@@ -412,6 +426,7 @@ class Line3D:
             t2c = t2b
             self.result = []
         t3 = time.perf_counter()
+        lo, hi = multihost.local_range(scene.num_views)
 
         self.stats = dict(
             num_views=scene.num_views,
@@ -432,7 +447,11 @@ class Line3D:
             probe_k_export=int(decision["k_export"]) if decision else 0,
             m_total=[int(vm.m_total) for vm in matches],
             collinearity_overflow=coll_overflow,
-            views_recollin_exact=int(n_recollin))
+            views_recollin_exact=int(n_recollin),
+            # the ranks of the run, the views of this rank's range, and
+            # the bytes it received from the other ranks
+            num_processes=nproc, views_local=hi - lo,
+            gathered_bytes=int(multihost.GATHERED_BYTES - gathered0))
         if ba_info:
             self.stats["ba_rms_before"] = ba_info["ba_rms_before"]
             self.stats["ba_rms_after"] = ba_info["ba_rms_after"]

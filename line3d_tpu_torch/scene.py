@@ -14,6 +14,7 @@ import torch
 
 from .config import L3DConfig, DEFAULT_CONFIG
 from .core.cameras import CameraSet
+from .parallel import multihost
 
 
 def pad_to(n: int, multiple: int) -> int:
@@ -31,7 +32,8 @@ class Scene:
     wp_lists:  list of per-view worldpoint-id arrays (ragged, host only).
     collin:    per-view sparse collinearity maps (CollinMaps), or None.
     device:    where `segments_t` / `seg_mask_t`, the tensor copies the
-               matching and collinearity stages read, live.
+               matching and collinearity stages read, live ("cuda" is
+               this rank's card under N ranks, multihost.resolve_device).
     """
     segments: np.ndarray
     seg_mask: np.ndarray
@@ -43,7 +45,8 @@ class Scene:
     device: torch.device | str = "cuda"
 
     def __post_init__(self):
-        self.device = torch.device(self.device)
+        # under N ranks a bare "cuda" is this rank's card
+        self.device = multihost.resolve_device(self.device)
         self.segments_t = torch.as_tensor(
             np.asarray(self.segments, np.float32), device=self.device)
         self.seg_mask_t = torch.as_tensor(

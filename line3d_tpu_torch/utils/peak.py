@@ -67,10 +67,11 @@ def fma_chain_cuda(x: torch.Tensor, trips: int) -> torch.Tensor:
         raise ValueError("fma_chain: trips must be >= 0 and n < 2^31")
     cuda.require_cuda("fma_chain", x, dtypes=[torch.float32])
     out = torch.empty(x.shape[0], dtype=torch.float32, device=x.device)
-    rc = cuda.lib().l3d_fma_peak(x.data_ptr(), float(np.float32(A)),
-                                 float(np.float32(B)), int(trips),
-                                 x.shape[0], out.data_ptr(),
-                                 cuda.stream_of(x))
+    with cuda.on_device(x):
+        rc = cuda.lib().l3d_fma_peak(x.data_ptr(), float(np.float32(A)),
+                                     float(np.float32(B)), int(trips),
+                                     x.shape[0], out.data_ptr(),
+                                     cuda.stream_of(x))
     cuda.check(rc, "l3d_fma_peak")
     LAUNCHES += 1
     return out

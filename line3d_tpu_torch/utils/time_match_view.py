@@ -10,9 +10,10 @@ runs.
 the one this file lies in), so one copy of the script times two commits in
 turns on the same card: unpack the other commit with `git archive` and
 pass its directory.  Per view, two steps are timed: `match_view` (the
-match table) and `match_and_select_view` (the table, the selection and
-what crosses to the host; its default selection, whatever that is in the
-timed tree).  Each repeat is one call followed by
+match table) and `view_step`, the view's step as the timed tree's
+pipeline runs it (the table, the selection and what crosses to the host:
+`match_views` of the one view, or `match_and_select_view` in a tree that
+predates `match_views`).  Each repeat is one call followed by
 `torch.cuda.synchronize()`, timed by the host clock (what the pipeline pays
 per view, launch issue and readbacks included) and by a pair of CUDA
 events around it (the same span on the card's clock).  One more call of
@@ -217,8 +218,10 @@ def main(argv=None) -> int:
                    verified=int((o["valid"] & (o["conf"] > 1.0)).sum()))
         for name, fn in (
                 ("match_view", lambda: engine.match_view(ctx, v, nb)),
-                ("match_and_select_view",
-                 lambda: engine.match_and_select_view(ctx, v, nb))):
+                ("view_step",
+                 (lambda: engine.match_views(ctx, nbrs, [v]))
+                 if hasattr(engine, "match_views")
+                 else lambda: engine.match_and_select_view(ctx, v, nb))):
             rec[name] = time_calls(fn, args.repeats)
             rec[name]["syncs"], rec[name]["sync_warnings"] = count_syncs(fn)
             rec[name]["copies"] = profiled(fn)

@@ -72,6 +72,24 @@ def test_pair_valid_kernel_matches_plain(dev):
     assert int((got != want).sum()) <= 4e-4 * n_valid
 
 
+def test_pair_valid_kernel_on_second_card(dev):
+    """K1 on cuda:1 while the current device is cuda:0: the wrapper makes
+    the tensors' card current for the launch (native.cuda.on_device), so
+    the plane is the twin's and lies on cuda:1.  Needs two cards."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two GPUs (torch.cuda.device_count() < 2)")
+    second = torch.device("cuda", 1)
+    a = _house_view(second)
+    with torch.cuda.device(0):
+        got = k1.pair_valid(*a)
+        torch.cuda.synchronize(second)
+    assert got.device == second
+    want = k1.pair_valid_plain(*a)
+    n_valid = int(want.sum())
+    assert n_valid > 20
+    assert int((got != want).sum()) <= 4e-4 * n_valid
+
+
 def _facade_view(dev, n=10):
     """Facade view 0 (S = 1280) against views 1..n, conditioned as the
     pipeline conditions them."""
@@ -500,14 +518,13 @@ def test_device_selection_on_the_card_equals_host_selection(dev):
                                       getattr(b_h, f.name))
     np.testing.assert_array_equal(med_d, med_h)
     ctx = engine.ViewContext(syn.scene, cams, cfg)
-    nb = np.asarray(nbrs[0], np.int64)
-    engine.match_and_select_view(ctx, 0, nb)
+    engine.match_views(ctx, nbrs, [0])
     torch.cuda.synchronize()
     with warnings.catch_warnings(record=True) as seen:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
         try:
-            engine.match_and_select_view(ctx, 0, nb)
+            engine.match_views(ctx, nbrs, [0])
         finally:
             torch.cuda.set_sync_debug_mode("default")
     syncs = [w for w in seen

@@ -154,7 +154,7 @@ def test_port_sources_import_no_jax():
     for new in ("cli.py", "io/images.py", "io/bundler.py", "io/nvm.py",
                 "io/cache.py", "detect/vectorized_lsd.py",
                 "detect/detector.py", "utils/visualize.py",
-                "parallel/sharded.py"):
+                "parallel/sharded.py", "parallel/multihost.py"):
         assert os.path.join(PKG, new) in seen
 
 
