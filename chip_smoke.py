@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (`line3d_tpu_torch`) end to end on one GPU.
 
-    python3 chip_smoke.py            # all phases, one card
+    python3 chip_smoke.py            # all phases
 
 Phases (each prints its own lines and its seconds; any failure raises and
 exits non-zero):
@@ -52,9 +52,11 @@ exits non-zero):
   9. facaded   the facade with device diffusion (reference mode) and device
                line refinement: one cold and three warm runs; the diffused
                weights held to the float64 host on the same graph, the
-               refined lines to the host refinement on the same clusters.
+               refined lines to the host refinement on the same clusters;
+               the model's TXT recorded (its sha256).
  10. facadeba  one facade run with joint camera + line bundle adjustment,
-               "true"-mode device diffusion and the round-parallel F-H.
+               "true"-mode device diffusion and the round-parallel F-H; its
+               TXT recorded (its sha256) and its refined poses kept.
  11. capped    the facade's three matching modes: (a) the default (the
                probe's one pass: nothing overflows or is re-matched, the
                model of phase 8), (b) capacity_probe=False (the capped pass
@@ -92,7 +94,15 @@ exits non-zero):
                capped run (capacity_probe=False: the owners re-match the
                overflowing views) must write phase 8's TXT byte for byte
                on every rank, and each rank's K4 lists must equal the
-               single launch's rows.
+               single launch's rows.  Then the cluster stage split across
+               the ranks: (c) phase 9's configuration (cold and warm; the
+               device diffusion's dot by edge range, the refinement by
+               blocks of clusters) and (d) phase 10's (the BA's line blocks
+               by blocks of clusters, its reduced camera system summed
+               over the ranks): each rank's TXT must equal phase 9's and
+               10's byte for byte, (d)'s refined poses phase 10's bit for
+               bit, and each rank must have built its dot and its
+               per-cluster tensors for its own share only.
 
 Each path's kernel launch counts are set to 0 just before it is driven and
 read just after.  The line before last is the card as `nvidia-smi` reports
@@ -968,7 +978,10 @@ def phase_facade_diffusion_refine(card):
             bool((ra_d <= ra_h + 0.05).all()) and align > 0.9999 and
             perp < 5e-3, "facaded: device refine differs from the host "
             "(tests/test_refine.py criteria)")
-    return dict(warm=warm, best=best_s, counts=counts, stats=l3d.stats)
+    txt = _txt_text(l3d)
+    log(f"[facaded] model TXT sha256 {_sha256(txt)} ({len(txt)} bytes)")
+    return dict(warm=warm, best=best_s, counts=counts, stats=l3d.stats,
+                txt=txt)
 
 
 def phase_facade_ba(card):
@@ -1005,7 +1018,9 @@ def phase_facade_ba(card):
     require(R.shape == (25, 3, 3) and tv.shape == (25, 3) and orth < 1e-5,
             "facadeba: refined poses are not orthonormal")
     _hold_diffusion(calls, "true", "facadeba")
-    return dict(seconds=t, stats=st)
+    txt = _txt_text(l3d)
+    log(f"[facadeba] model TXT sha256 {_sha256(txt)} ({len(txt)} bytes)")
+    return dict(seconds=t, stats=st, txt=txt, poses=l3d.refined_poses)
 
 
 def phase_capped(card, facade_txt):
@@ -1664,6 +1679,11 @@ def _txt_model(l3d, path):
     l3d.save_3d_lines_as_txt(l3d.get_result(), path)
 
 
+def _sha256(text: str) -> str:
+    import hashlib
+    return hashlib.sha256(text.encode()).hexdigest()
+
+
 def _txt_text(l3d) -> str:
     """The model as its TXT file's text."""
     with tempfile.TemporaryDirectory() as d:
@@ -1931,23 +1951,23 @@ MULTIPROC_TIMEOUT_S = 300
 
 
 @contextlib.contextmanager
-def _gathered_by(module, name, key, sink):
-    """Add to sink[key] the bytes this rank receives from the others
-    (multihost.GATHERED_BYTES) inside every call of module.name."""
-    from line3d_tpu_torch.parallel import multihost
-    orig = getattr(module, name)
-
-    def wrapped(*a, **k):
-        b0 = multihost.GATHERED_BYTES
-        try:
-            return orig(*a, **k)
-        finally:
-            sink[key] = sink.get(key, 0) + multihost.GATHERED_BYTES - b0
-    setattr(module, name, wrapped)
-    try:
-        yield sink
-    finally:
-        setattr(module, name, orig)
+def _shares(sizes):
+    """Record in sizes[name] this rank's share at each split device form of
+    the cluster stage: the rows of every diffusion dot (`_edge_dot`), the
+    clusters of every refinement block (`_refine_lines_t`) and of every
+    BA solve (`_bundle`)."""
+    from line3d_tpu_torch.cluster import diffusion_device
+    from line3d_tpu_torch.fit import bundle, refine
+    sites = ((diffusion_device, "_edge_dot", lambda a, out: out.K),
+             (refine, "_refine_lines_t", lambda a, out: int(a[0].shape[0])),
+             (bundle, "_bundle", lambda a, out: int(a[0].shape[0])))
+    calls = {name: [] for _, name, _ in sites}
+    with contextlib.ExitStack() as stack:
+        for module, name, _ in sites:
+            stack.enter_context(spy(module, name, calls[name]))
+        yield
+    for _, name, size in sites:
+        sizes[name] = [size(a, out) for a, _, out in calls[name]]
 
 
 def multiproc_rank(spec: str) -> int:
@@ -1958,7 +1978,7 @@ def multiproc_rank(spec: str) -> int:
     output directory."""
     import torch
     import torch.distributed as dist
-    from line3d_tpu_torch import Line3D, L3DConfig, pipeline
+    from line3d_tpu_torch import Line3D, L3DConfig
     from line3d_tpu_torch.cluster import affinity
     from line3d_tpu_torch.match import collinearity, engine
     from line3d_tpu_torch.parallel import multihost
@@ -1979,9 +1999,9 @@ def multiproc_rank(spec: str) -> int:
     require(dev == torch.device("cuda", rank % torch.cuda.device_count()),
             f"{tag}: Line3D's card is {dev}")
 
-    def runner(c):
+    def runner(c, sc=scene):
         def run():
-            l3d = feed(Line3D(config=c), scene, cams)
+            l3d = feed(Line3D(config=c), sc, cams)
             t0 = time.perf_counter()
             l3d.compute_3d_model()
             torch.cuda.synchronize(dev)
@@ -1990,18 +2010,13 @@ def multiproc_rank(spec: str) -> int:
 
     out = dict(rank=rank, lo=lo, hi=hi, device=str(dev))
     l3d, out["cold"] = runner(cfg)()
-    stage_bytes, sweeps = {}, []
+    sweeps = []
     with spy(collinearity, "collinearity_compact_all", []) as k4calls, \
-            spy(affinity, "_finalize_candidates", sweeps), \
-            contextlib.ExitStack() as stack:
-        for module, name, key in (
-                (pipeline, "collinearity_maps_fast", "collinearity"),
-                (engine, "match_views", "matching"),
-                (affinity, "_finalize_candidates", "affinity")):
-            stack.enter_context(_gathered_by(module, name, key,
-                                             stage_bytes))
+            spy(affinity, "_finalize_candidates", sweeps):
         (l3d, out["warm"]), out["counts"] = _counted(runner(cfg), tag)
     st = l3d.stats
+    stage_bytes = {k: st["gathered_by_stage"][k]
+                   for k in ("collinearity", "matching", "affinity")}
     out.update(t_match=st["t_match"], t_collin=st["t_collin"],
                gathered_bytes=st["gathered_bytes"], stage_bytes=stage_bytes,
                sweep_candidates=len(sweeps[-1][0][1]) if sweeps else 0,
@@ -2042,21 +2057,62 @@ def multiproc_rank(spec: str) -> int:
             f"{tag}: the owners did not re-match the overflowing views")
     with open(os.path.join(outdir, f"capped_{rank}.txt"), "w") as f:
         f.write(_txt_text(l3d))
+
+    # the cluster stage split across the ranks: phase facaded's and phase
+    # facadeba's configurations
+    for run_tag, kw, n_runs in (
+            ("c", dict(perform_diffusion=True, refine_lines=True), 2),
+            ("d", dict(perform_diffusion=True, diffusion_mode="true",
+                       fh_backend="parallel", bundle_adjust_cameras=True),
+             1)):
+        c = L3DConfig(**kw)
+        sc, _ = make_facade_scene(num_views=25, config=c)
+        for i in range(n_runs):
+            shares = {}
+            with _shares(shares):
+                (l3d, secs), counts = _counted(runner(c, sc), tag)
+        st = l3d.stats
+        rec = dict(seconds=secs, counts=counts, shares=shares,
+                   edges=st["num_edges"], lines=st["num_lines"],
+                   gathered_by_stage=st["gathered_by_stage"],
+                   **{k: st[k] for k in ("t_diffusion", "t_fh", "t_fit",
+                                         "t_cluster", "t_match")})
+        out[run_tag] = rec
+        log(f"[{tag}] ({run_tag}) {kw}: {'warm' if n_runs > 1 else 'one'} "
+            f"run {secs:.3f} s (t_diffusion {st['t_diffusion']:.3f}, t_fh "
+            f"{st['t_fh']:.3f}, t_fit {st['t_fit']:.3f}, t_cluster "
+            f"{st['t_cluster']:.3f} s), {st['num_lines']} lines; this "
+            f"rank's dot rows {shares['_edge_dot']} of {st['num_edges']} "
+            f"edges, refinement blocks {shares['_refine_lines_t']}, BA "
+            f"clusters {shares['_bundle']}; received by stage "
+            f"{st['gathered_by_stage']}")
+        elo, ehi = multihost.local_range(st["num_edges"])
+        require(shares["_edge_dot"] == [ehi - elo],
+                f"{tag} ({run_tag}): the diffusion dot is not this rank's "
+                f"edge range [{elo}, {ehi})")
+        with open(os.path.join(outdir, f"{run_tag}_{rank}.txt"), "w") as f:
+            f.write(_txt_text(l3d))
+        if l3d.refined_poses is not None:
+            np.savez(os.path.join(outdir, f"poses_{rank}.npz"),
+                     R=l3d.refined_poses[0], t=l3d.refined_poses[1])
     with open(os.path.join(outdir, f"rank_{rank}.json"), "w") as f:
         json.dump(out, f)
     dist.destroy_process_group()
     return 0
 
 
-def phase_multiproc(card, fa):
+def phase_multiproc(card, fa, fd, fb):
     """The facade over max(MULTIPROC_MIN_RANKS, cards) processes (phase 14
-    of the module
-    docstring): each rank's model must be phase facade's TXT byte for
-    byte, exact and capped, and its K4 lists the single launch's rows."""
+    of the module docstring): each rank's model must be phase facade's TXT
+    byte for byte, exact and capped, and its K4 lists the single launch's
+    rows; with the cluster stage split, phase facaded's (c) and phase
+    facadeba's (d) TXT, (d)'s poses phase facadeba's, and each rank's
+    shares its own."""
     import socket
     import torch
     from line3d_tpu_torch import L3DConfig
     from line3d_tpu_torch.match import collinearity
+    from line3d_tpu_torch.parallel import multihost
     from line3d_tpu_torch.utils.demo import make_facade_scene
     s = socket.socket()
     s.bind(("127.0.0.1", 0))
@@ -2102,12 +2158,35 @@ def phase_multiproc(card, fa):
         for r in range(n_ranks):
             with open(os.path.join(outdir, f"rank_{r}.json")) as f:
                 ranks.append(json.load(f))
-            for kind in ("exact", "capped"):
+            for kind, want, phase in (("exact", fa, "facade"),
+                                      ("capped", fa, "facade"),
+                                      ("c", fd, "facaded"),
+                                      ("d", fb, "facadeba")):
                 with open(os.path.join(outdir, f"{kind}_{r}.txt")) as f:
-                    require(f.read() == fa["txt"], f"multiproc: rank {r}'s "
-                            f"{kind} model differs from phase facade's")
+                    require(f.read() == want["txt"], f"multiproc: rank {r}'s "
+                            f"{kind} model differs from phase {phase}'s")
+            poses = np.load(os.path.join(outdir, f"poses_{r}.npz"))
+            require(np.array_equal(poses["R"], fb["poses"][0]) and
+                    np.array_equal(poses["t"], fb["poses"][1]),
+                    f"multiproc: rank {r}'s refined poses differ from phase "
+                    f"facadeba's")
             ranks[r]["k4"] = dict(np.load(os.path.join(outdir,
                                                        f"k4_{r}.npz")))
+    # each rank's refinement blocks and BA clusters: its own whole blocks
+    # of the clusters all ranks solved together
+    from line3d_tpu_torch.fit import refine
+    for run_tag, site in (("c", "_refine_lines_t"), ("d", "_bundle")):
+        sizes = [r[run_tag]["shares"][site] for r in ranks]
+        C = sum(map(sum, sizes))
+        blk = refine.block_size(C)
+        for r, got in zip(ranks, sizes):
+            b0, b1 = multihost.my_view_range(-(-C // blk), r["rank"],
+                                             n_ranks)
+            mine = [min(blk, C - b * blk) for b in range(b0, b1)]
+            want = mine if site == "_refine_lines_t" else \
+                [sum(mine)]
+            require(got == want, f"multiproc: rank {r['rank']}'s ({run_tag}) "
+                    f"{site} shares {got}, not its blocks {want} of {C}")
     # each rank's K4 lists against one launch over all 25 views
     cfg = L3DConfig()
     scene, _ = make_facade_scene(num_views=25, config=cfg)
@@ -2136,6 +2215,27 @@ def phase_multiproc(card, fa):
                     f" {r['t_match']:.3f} {r['gathered_bytes']} "
                     f"{r['stage_bytes']}" for r in ranks)
         + f"; phase facade's warm seconds {fa['warm']} on {card}")
+    log(f"[multiproc] cluster stage split over {n_ranks} ranks: (c) "
+        f"facaded's and (d) facadeba's TXT byte for byte on every rank, "
+        f"(d)'s poses bit for bit; per rank ((c) warm s, t_diffusion, t_fit;"
+        f" (d) s, t_diffusion, t_fit; dot rows, refinement blocks, BA "
+        f"clusters; bytes received (c) diffusion + fit, (d) diffusion + "
+        f"fit): "
+        + "; ".join(
+            f"{r['device']} {r['c']['seconds']:.3f} "
+            f"{r['c']['t_diffusion']:.3f} {r['c']['t_fit']:.3f}, "
+            f"{r['d']['seconds']:.3f} {r['d']['t_diffusion']:.3f} "
+            f"{r['d']['t_fit']:.3f}, {r['c']['shares']['_edge_dot']} "
+            f"{r['c']['shares']['_refine_lines_t']} "
+            f"{r['d']['shares']['_bundle']}, "
+            f"{r['c']['gathered_by_stage']['diffusion']} + "
+            f"{r['c']['gathered_by_stage']['fit']}, "
+            f"{r['d']['gathered_by_stage']['diffusion']} + "
+            f"{r['d']['gathered_by_stage']['fit']}" for r in ranks)
+        + f"; one process (phases facaded / facadeba): t_diffusion "
+        f"{fd['stats']['t_diffusion']:.3f} / {fb['stats']['t_diffusion']:.3f}"
+        f", t_fit {fd['stats']['t_fit']:.3f} / {fb['stats']['t_fit']:.3f} s"
+        f" on {card}")
     for r in ranks:
         del r["k4"]
     return dict(wall=wall, ranks=ranks)
@@ -2170,11 +2270,11 @@ def main() -> int:
     timed("house10d", phase_house10d)
     fa = timed("facade", phase_facade, card)
     fd = timed("facaded", phase_facade_diffusion_refine, card)
-    timed("facadeba", phase_facade_ba, card)
+    fb = timed("facadeba", phase_facade_ba, card)
     cp = timed("capped", phase_capped, card, fa["txt"])
     sp = timed("stress", phase_stress, card)
     cl = timed("cli", phase_cli, card)
-    mp = timed("multiproc", phase_multiproc, card, fa)
+    mp = timed("multiproc", phase_multiproc, card, fa, fd, fb)
     require("jax" not in sys.modules and "line3d_tpu" not in sys.modules,
             "JAX or line3d_tpu was imported")
     d2h = (fa["copies"] or {}).get("DtoH", {})

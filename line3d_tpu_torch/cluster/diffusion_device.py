@@ -16,11 +16,22 @@ of the normalization (b = 1, A = the row's entries), the lockstep dot
 (A[e, c] = rowstart[j_e] + c, B[e, c] = colstart[i_e] + c, n_e = min of the
 two degrees) and the true dot (the (P, W) positions where the merge walk
 of P's row i_e and W's column j_e meets, found once per call) all take
-this form.  `_PairSums` evaluates it as one padded gather and one sum over
-the padded axis per power-of-two length class: no atomics, so two runs on
-the card give the same bits (a float `index_add_` or `scatter_add_` on
-CUDA sums in an order that changes from run to run).  Values are float32,
-as in the reference kernels (the host path in diffusion.py is float64).
+this form.  `_PairSums` evaluates it as one padded gather per power-of-two
+length class and a sum over the padded axis by pairwise halving: no
+atomics, so two runs on the card give the same bits (a float `index_add_`
+or `scatter_add_` on CUDA sums in an order that changes from run to run),
+and the additions of a row do not depend on how many rows are summed with
+it (a library reduction may choose its order by the row count).  Values
+are float32, as in the reference kernels (the host path in diffusion.py is
+float64).
+
+Across N processes (`parallel/multihost.py`) the O(E·K) work splits by
+edge, as line3d_tpu shards the [E] arrays over its mesh: each rank builds
+and evaluates the dot (and the true-mode merge walk) for its contiguous
+range of the row-sorted edges only, and all-gathers its slice of the new
+values once per iteration; the O(E) row normalisation, transpose gather and
+min-symmetrisation run on every rank.  A row's sum is its own, so every
+rank gets the single process's bits.
 """
 from __future__ import annotations
 
@@ -28,6 +39,8 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+
+from ..parallel import multihost
 
 
 @dataclass
@@ -95,7 +108,12 @@ class _PairSums:
             v = a_ext[idx[0]]
             if b_ext is not None:
                 v = v * b_ext[idx[1]]
-            out[rows] = v.sum(dim=1)
+            # pairwise halving over the padded axis: elementwise adds in an
+            # order fixed by L alone
+            while v.shape[1] > 1:
+                h = v.shape[1] // 2
+                v = v[:, :h] + v[:, h:]
+            out[rows] = v[:, 0]
         return out
 
 
@@ -104,20 +122,21 @@ def _ext(x):
     return torch.cat([x, x.new_zeros(1)])
 
 
-def _merge_walk_hits(p: DiffusionPlan, dev):
+def _merge_walk_hits(p: DiffusionPlan, lo: int, hi: int, dev):
     """The "true"-mode merge walk (line3d_tpu's _diffuse_true_kernel
-    :190-210), run once: for every row-sorted entry e = (i, j), walk P's
-    row i (keys: column ids) and W's column j (keys: row ids) by key
-    comparison.  Where the keys meet, P[i, k] * W[k, j] enters the dot.
+    :190-210), run once: for every row-sorted entry e = (i, j) in [lo, hi),
+    walk P's row i (keys: column ids) and W's column j (keys: row ids) by
+    key comparison.  Where the keys meet, P[i, k] * W[k, j] enters the dot.
     The walk depends on the pattern alone, so its meeting points are the
-    same in every iteration.  Returns (n [E], index fn) for _PairSums."""
+    same in every iteration.  Returns (n [hi - lo], index fn) for
+    _PairSums, rows counted from lo."""
     t = lambda x: torch.as_tensor(x, device=dev)  # noqa: E731
     rowstart, deg = t(p.rowstart), t(p.deg)
     rj_keys, ci_keys = t(p.rj), t(p.ci)
     base_a = rowstart[t(p.ri)]          # P's row i_e, row-sorted layout
     base_b = rowstart[t(p.rj)]          # W's column j_e, col-sorted layout
     len_a, len_b = deg[t(p.ri)], deg[t(p.rj)]
-    e = torch.arange(p.num_edges, device=dev)
+    e = torch.arange(lo, hi, device=dev)
     a = torch.zeros_like(e)
     b = torch.zeros_like(e)
     he, ha, hb = [], [], []
@@ -135,13 +154,34 @@ def _merge_walk_hits(p: DiffusionPlan, dev):
     he, ha, hb = torch.cat(he), torch.cat(ha), torch.cat(hb)
     order = torch.sort(he, stable=True).indices   # by edge, walk order
     ha, hb = ha[order], hb[order]
-    n = torch.bincount(he, minlength=p.num_edges)
+    n = torch.bincount(he - lo, minlength=hi - lo)
     off = torch.cumsum(n, 0) - n
 
     def index(rows, c):
         k = (off[rows][:, None] + c[None, :]).clamp_max(max(len(ha) - 1, 0))
         return ha[k], hb[k]
     return n, index
+
+
+def _edge_dot(p: DiffusionPlan, lo: int, hi: int, dev,
+              true_mode: bool) -> _PairSums:
+    """The diffusion dot of the row-sorted edges [lo, hi) (this rank's
+    share) as a _PairSums over those hi - lo rows."""
+    t = lambda x: torch.as_tensor(x, device=dev)  # noqa: E731
+    if true_mode:
+        n, index = _merge_walk_hits(p, lo, hi, dev)
+    else:
+        # lockstep: the t-th entry of P's row j_e times the t-th entry of
+        # W's column i_e, t < min(deg j_e, deg i_e) (cudawrapper.cu:786-800)
+        rowstart, deg = t(p.rowstart), t(p.deg)
+        rj, ri = t(p.rj[lo:hi]), t(p.ri[lo:hi])
+        base_p, base_w = rowstart[rj], rowstart[ri]
+        n = torch.minimum(deg[rj], deg[ri])
+
+        def index(rows, c):
+            return (base_p[rows][:, None] + c[None, :],
+                    base_w[rows][:, None] + c[None, :])
+    return _PairSums(n, index, p.num_edges)
 
 
 def _diffuse(edges_i, edges_j, edges_w, num_nodes, iterations, eps, device,
@@ -163,29 +203,22 @@ def _diffuse(edges_i, edges_j, edges_w, num_nodes, iterations, eps, device,
     def row_normalize(pv):
         return pv / row_sums(_ext(pv)).clamp_min(eps)[ri]
 
-    if true_mode:
-        n, index = _merge_walk_hits(p, dev)
-    else:
-        # lockstep: the t-th entry of P's row j_e times the t-th entry of
-        # W's column i_e, t < min(deg j_e, deg i_e) (cudawrapper.cu:786-800)
-        base_p, base_w = rowstart[t(p.rj)], rowstart[ri]
-        n = torch.minimum(deg[t(p.rj)], deg[ri])
-
-        def index(rows, c):
-            return (base_p[rows][:, None] + c[None, :],
-                    base_w[rows][:, None] + c[None, :])
-    dot = _PairSums(n, index, E)
+    lo, hi = multihost.local_range(E)
+    dot = _edge_dot(p, lo, hi, dev, true_mode)
 
     pv = row_normalize(rw)
     for it in range(iterations):
         if it:
             pv = row_normalize(pv)
+        d = dot(_ext(pv), wv_ext)                 # edges [lo, hi)
         if true_mode:
             # P^T ∘ (P·W) written to transposed positions, as a gather
-            pv = (pv * dot(_ext(pv), wv_ext)[order_col]).clamp_min(eps)
+            pv = (pv * multihost.allgather_tensor(d)[order_col]).clamp_min(
+                eps)
         else:
             # write-to-transpose (cudawrapper.cu:805-818) as a gather
-            pv = (pv * dot(_ext(pv), wv_ext)).clamp_min(eps)[order_col]
+            pv = multihost.allgather_tensor(
+                (pv[lo:hi] * d).clamp_min(eps))[order_col]
     # min-symmetrize (performDiffusion, line3D.cc:1264-1299)
     w_sym = torch.minimum(pv, pv[order_col])
     return p.ri, p.rj, w_sym.cpu().numpy().astype(np.float64)

@@ -59,7 +59,8 @@ def process_clusters(graph: AffinityGraph, labels: np.ndarray,
     P_cond [V, 3, 4] (float64), or, with config.bundle_adjust_cameras, by
     fit.bundle jointly with the conditioned `cameras`' poses, whose result
     lands in out_info (ba_rms_before/after, R_cond, t_cond).  The device
-    forms run on `device`.
+    forms run on `device`, each rank on its own blocks of clusters
+    (`parallel/multihost.py`); the host refinement runs on every rank.
     """
     if graph.num_nodes == 0:
         return []

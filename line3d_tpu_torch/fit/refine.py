@@ -22,11 +22,36 @@ tests/test_torch_refine.py):
     mantissa).  Matrix products stay in full float32: TF32 (or bf16)
     truncation costs whole pixels of reprojection error at K ≈ 1500, which
     is why line3d_tpu asks XLA for Precision.HIGHEST here.
+
+The device form runs in blocks of `block_size(C)` clusters.  Across N
+processes (`parallel/multihost.py`) each rank solves its own whole blocks
+and the results are all-gathered, as line3d_tpu shards the cluster axis
+over its mesh with no collective inside the solve.  One process runs the
+same blocks, so every cluster's batched products and solves have the same
+shapes, and give the same bits, at any process count (a batched library
+call may pick its algorithm by the batch size).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from ..parallel import multihost
+
+# clusters per block of the device refinement and of the bundle
+# adjustment's line blocks (the unit of work a rank owns) are a multiple of
+# BLOCK, at most MAX_BLOCKS blocks: each block is one Gauss-Newton launch
+# sequence, whose launch cost on the host, not the card, sets its time
+BLOCK = 256
+MAX_BLOCKS = 4
+
+
+def block_size(n: int) -> int:
+    """Clusters per block for n clusters: the least multiple of BLOCK that
+    cuts them into at most MAX_BLOCKS blocks.  It depends on n alone, never
+    on the process count, so every rank runs the single process's
+    blocks."""
+    return BLOCK * max(1, -(-n // (BLOCK * MAX_BLOCKS)))
 
 
 def _orthobasis(d: np.ndarray):
@@ -191,9 +216,11 @@ def _refine_lines_t(P0, d, Pm, p1, p2, mask, iterations: int,
 
         zero = torch.zeros((C, 4), dtype=P0.dtype, device=P0.device)
         r0, ok = residuals_t(P0, d, Pm, p1, p2, mask)
-        # exact forward-mode Jacobian: 4 jvp passes over the tangent params
-        J = torch.stack([torch.func.jvp(res_at, (zero,), (zero + eye4[k],))[1]
-                         for k in range(4)], dim=-1)      # [C, M, 2, 4]
+        # exact forward-mode Jacobian: one jvp pass, vmapped over the 4
+        # tangent directions
+        J = torch.func.vmap(
+            lambda v: torch.func.jvp(res_at, (zero,), (v,))[1])(
+            eye4[:, None, :].expand(4, C, 4)).movedim(0, -1)  # [C, M, 2, 4]
         w = huber_weights(r0, ok, huber_delta)
         Jf = (J * w[..., None]).reshape(C, -1, 4)
         rf = (r0 * w).reshape(C, -1)
@@ -223,19 +250,30 @@ def refine_lines_device(P0, d, Pm, p1, p2, mask, iterations: int = 5,
 
     Same signature and semantics as refine_lines (numpy in, float64 numpy
     out); ~equal optima (both are rms-gated Gauss-Newton on the same
-    residuals).  Every cluster's solve is independent, so the [C] batch
-    runs as one set of tensor operations with no padding."""
+    residuals).  Every cluster's solve is independent: this rank solves
+    its blocks of `block_size(C)` clusters (`multihost.local_block_range`;
+    all of them in one process), each block as one set of tensor
+    operations with no padding, and the float32 results of all ranks are
+    gathered."""
     dev = torch.device(device)
     d_unit = np.asarray(d, np.float64)
     d_unit = d_unit / np.linalg.norm(d_unit, axis=1, keepdims=True)
+    blk = block_size(len(d_unit))
+    lo, hi = multihost.local_block_range(len(d_unit), blk)
 
-    def t(x, dtype=torch.float32):
-        return torch.as_tensor(np.asarray(x), device=dev).to(dtype)
-    out = _refine_lines_t(t(P0), t(d_unit), t(Pm), t(p1), t(p2),
-                          t(mask, torch.bool), iterations=int(iterations),
-                          huber_delta=float(huber_delta),
-                          damping=float(damping))
-    return tuple(x.cpu().numpy().astype(np.float64) for x in out)
+    def t(x, sl, dtype=torch.float32):
+        return torch.as_tensor(np.asarray(x)[sl], device=dev).to(dtype)
+    outs = [torch.zeros((0, 8), dtype=torch.float32, device=dev)]
+    for c0 in range(lo, hi, blk):
+        sl = slice(c0, min(c0 + blk, hi))
+        P0b, db, rbb, rab = _refine_lines_t(
+            t(P0, sl), t(d_unit, sl), t(Pm, sl), t(p1, sl), t(p2, sl),
+            t(mask, sl, torch.bool), iterations=int(iterations),
+            huber_delta=float(huber_delta), damping=float(damping))
+        outs.append(torch.cat([P0b, db, rbb[:, None], rab[:, None]], dim=1))
+    out = multihost.allgather_tensor(torch.cat(outs)).cpu().numpy()
+    out = out.astype(np.float64)
+    return out[:, 0:3], out[:, 3:6], out[:, 6], out[:, 7]
 
 
 def build_cluster_member_data(member_views, member_segs, scene_segments,

@@ -16,11 +16,17 @@ is one process per GPU, so the JAX recipe becomes:
      buffer and probe counters, each view's collinear pair list) is
      all-gathered, and every rank decodes every view in view order, as
      every JAX host decodes the replicated buffer,
-  4. the cluster stage runs replicated on identical inputs, with its
-     weight sweep split by candidate range across the ranks
-     (`cluster/affinity.py:_finalize_candidates_sharded`) and gathered as
-     float64 bits, so every rank ends with the same model, bit for bit the
-     single-process one.
+  4. the cluster stage runs on identical inputs on every rank, with its
+     device work split: the affinity weight sweep by candidate range
+     (`cluster/affinity.py:_finalize_candidates`, gathered as float64
+     bits), the device diffusion's per-edge dot by edge range (one gather
+     of the new values per iteration, `cluster/diffusion_device.py`), the
+     device refinement and the bundle adjustment (BA) by whole blocks of
+     clusters (`local_block_range`; `fit/refine.py`, `fit/bundle.py`,
+     whose reduced camera system is the `ordered_sum` of the ranks' block
+     partials); the host forms (float64 diffusion, numpy refinement),
+     F-H and the line fits run replicated.  Every rank ends with the same
+     model, bit for bit the single-process one.
 
 All exchanges are host arrays over gloo (`allgather_array`): the data lies
 on the host after the readbacks the single-process path does anyway, gloo
@@ -31,6 +37,10 @@ no array spans processes; a rank's tensors live on its own card.
 
 Without an initialised process group every function here is the
 single-process identity: `process_count()` is 1 and nothing is exchanged.
+A single process runs the same split code as a gather of one, so the
+results cannot depend on the process count: no sum crosses ranks in an
+order the backend picks (`ordered_sum` adds the gathered partials in
+global block order on every rank).
 """
 from __future__ import annotations
 
@@ -114,6 +124,15 @@ def local_range(n: int):
     return my_view_range(n, process_index(), process_count())
 
 
+def local_block_range(n: int, block: int):
+    """[lo, hi) of this rank's share of n items in whole blocks of `block`
+    (the last block may be short): the blocks `local_range` gives this
+    rank out of all ceil(n / block), so a rank's blocks are the single
+    process's blocks, with the same shapes."""
+    b0, b1 = local_range(-(-n // block))
+    return min(b0 * block, n), min(b1 * block, n)
+
+
 def allgather_array(x: np.ndarray) -> list:
     """Every rank's `x`, in rank order, exactly: the bytes of each array
     cross as they are (int32, int64, float64, bool alike), padded to the
@@ -164,3 +183,24 @@ def allgather_segments(local_segments: np.ndarray, local_mask: np.ndarray,
         segs[int(s0[0]):int(s0[0]) + len(sg)] = sg
         mask[int(s0[0]):int(s0[0]) + len(mk)] = mk
     return segs, mask
+
+
+def allgather_tensor(x: torch.Tensor) -> torch.Tensor:
+    """Every rank's rows of `x` concatenated in rank order, on x's device;
+    the values cross exactly (`allgather_array`).  A single process gets
+    `x` itself: no copy, no trip through the host."""
+    if process_count() == 1:
+        return x
+    parts = allgather_array(x.detach().cpu().numpy())
+    return torch.from_numpy(np.concatenate(parts)).to(x.device)
+
+
+def ordered_sum(parts: torch.Tensor) -> torch.Tensor:
+    """The sum of every rank's block partials `parts` [n_local, ...] in
+    global block order, starting from zero: ((0 + p_0) + p_1) + ..., the
+    loop one process runs over all its blocks.  Ranks own contiguous block
+    ranges in rank order, so every rank gets the single process's bits."""
+    acc = parts.new_zeros(parts.shape[1:])
+    for p in allgather_tensor(parts):
+        acc = acc + p
+    return acc

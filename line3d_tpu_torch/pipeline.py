@@ -227,8 +227,11 @@ class Line3D:
             results = list(ex.map(
                 lambda it: self._segments_for_image(it[0], it[1], max_w,
                                                     store), items))
-        self.stats["t_detect"] = self.stats.get("t_detect", 0.0) + \
-            (time.perf_counter() - t0)
+        # the pool's wall time when it detected any image; loading images
+        # whose segments all came from the cache is no detection
+        if any(dt > 0 for _, _, dt in results):
+            self.stats["t_detect"] = self.stats.get("t_detect", 0.0) + \
+                (time.perf_counter() - t0)
         for (image_id, _, K, R, t, wp_ids), (segs, (w, h), _dt) in zip(
                 items, results):
             self.add_view_segments(image_id, segs, K, R, t, wp_ids,
@@ -299,7 +302,10 @@ class Line3D:
         self.refined_poses = None     # never leak a previous run's BA poses
 
         nproc = multihost.process_count()
+        # bytes received from the other ranks, in all and by stage (each
+        # stage's count taken from b, the total at its start)
         gathered0 = multihost.GATHERED_BYTES
+        by_stage = {}
         t0 = time.perf_counter()
         self._build_scene()
         scene, cams = self.scene, self.cameras
@@ -316,13 +322,16 @@ class Line3D:
 
         # collinearity (L3DSegments ctor, segments.h:73-101)
         tc0 = time.perf_counter()
+        b = multihost.GATHERED_BYTES
         if cfg.use_collinearity:
             scene.collin = collinearity_maps_fast(
                 scene.segments_t, scene.seg_mask_t, cfg.collinearity_sigma,
                 quota=cfg.collinearity_block_quota,
                 pairs_per_seg=cfg.collinearity_pairs_per_seg,
                 aff_threshold=cfg.collinearity_aff_threshold)
+        by_stage["collinearity"] = multihost.GATHERED_BYTES - b
         t1 = time.perf_counter()
+        b = multihost.GATHERED_BYTES
 
         # stage 3+4: matching + verification + greedy selection
         # (line3D.cc:367-370).  As in line3d_tpu: with the exactness guard
@@ -387,19 +396,25 @@ class Line3D:
                     cfg.collinearity_sigma,
                     aff_threshold=cfg.collinearity_aff_threshold,
                     verbose=self.verbose)
+        by_stage["matching"] = multihost.GATHERED_BYTES - b
         t2 = time.perf_counter()
 
         # stage 5: clustering (line3D.cc:373)
+        b = multihost.GATHERED_BYTES
         graph = affinity.build_affinity_graph(
             best, matches, scene.collin, cams, cfg, scene.max_segments,
             verbose=self.verbose)
+        by_stage["affinity"] = multihost.GATHERED_BYTES - b
         t2a = time.perf_counter()
+        b = multihost.GATHERED_BYTES
         if diffu and graph.num_nodes:
             # performDiffusion (line3D.cc:1255-1303): the device backend
-            # runs on the Line3D's device
+            # runs on the Line3D's device, split by edge over the ranks
             graph = diffusion_mod.run_diffusion(graph, cfg, self.verbose,
                                                 device=self.device)
+        by_stage["diffusion"] = multihost.GATHERED_BYTES - b
         t2b = time.perf_counter()
+        b = multihost.GATHERED_BYTES
         ba_info = {}
         if graph.num_nodes:
             fh_fn = fh.fh_cluster_parallel \
@@ -425,6 +440,8 @@ class Line3D:
         else:
             t2c = t2b
             self.result = []
+        # F-H and the line fits: the device refinement or the BA
+        by_stage["fit"] = multihost.GATHERED_BYTES - b
         t3 = time.perf_counter()
         lo, hi = multihost.local_range(scene.num_views)
 
@@ -449,9 +466,11 @@ class Line3D:
             collinearity_overflow=coll_overflow,
             views_recollin_exact=int(n_recollin),
             # the ranks of the run, the views of this rank's range, and
-            # the bytes it received from the other ranks
+            # the bytes it received from the other ranks, in all and by
+            # stage
             num_processes=nproc, views_local=hi - lo,
-            gathered_bytes=int(multihost.GATHERED_BYTES - gathered0))
+            gathered_bytes=int(multihost.GATHERED_BYTES - gathered0),
+            gathered_by_stage={k: int(v) for k, v in by_stage.items()})
         if ba_info:
             self.stats["ba_rms_before"] = ba_info["ba_rms_before"]
             self.stats["ba_rms_after"] = ba_info["ba_rms_after"]
