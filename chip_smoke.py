@@ -48,7 +48,14 @@ exits non-zero):
                held to those counted from the twin's planes, the device
                selection held to the host selection on the same card
                tables, and the host synchronisations of one view's step
-               counted (at most three).
+               counted (at most three).  Then the reduced facade of
+               tests/test_torch_host.py (8 views, 960 x 720) on the card
+               (launches counted) and on the CPU (plain twins, host
+               selection): each view's verified matches may differ on
+               less than 1e-3 of them, each differing best-match pick
+               must be a near-tie, lie in a row whose verified matches
+               differ, or be a tie of the float64 confidences; the two
+               models compared by member sets.
   9. facaded   the facade with device diffusion (reference mode) and device
                line refinement: one cold and three warm runs; the diffused
                weights held to the float64 host on the same graph, the
@@ -1769,9 +1776,117 @@ def phase_facade(card):
         t0 = time.perf_counter()
         syncs[v] = _check_view_on_cpu(l3d, ctx_g, ctx_c, v)
         log(f"[facade] view {v}: CPU check {time.perf_counter() - t0:.1f} s")
+    reduced = _reduced_facade_card_vs_cpu(card)
     return dict(warm=warm, best=best_s, counts=counts, stats=st, txt=txt,
                 copies=copies, host_selection_seconds=host_s,
-                host_selection_t_match=host_match, syncs=syncs)
+                host_selection_t_match=host_match, syncs=syncs,
+                reduced=reduced)
+
+
+# the reduced facade of tests/test_torch_host.py's slow test (8 views at
+# 960 x 720, focal 900: S = 1,280, m_total 512, collinearity drops pairs in
+# view 5); there the port's CPU model has 434 lines, 428 of them with
+# line3d_tpu's member sets (it has 432), every difference entering at
+# matching
+REDUCED_FACADE = dict(num_views=8, width=960, height=720, focal=900.0)
+# bounds of stage (f) there: verified-match sets may differ on less than
+# this share of a view's matches; a differing best-match pick must be a
+# near-tie (within this relative gap of the CPU's confidences), lie in a
+# row whose verified matches differ, or be a tie of the float64
+# confidences that float32 rounding orders (utils/compare.float64_tie)
+VERIFIED_DIFF_MAX = 1e-3
+NEAR_TIE_REL = 1e-5
+
+
+def _reduced_facade_card_vs_cpu(card):
+    """The reduced facade through Line3D on the card (K1, K4, the scoring
+    kernel; launches counted) and on the CPU (the plain twins, host
+    selection) in this process, held to stage (f)'s bounds of
+    tests/test_torch_host.py; the models compared by member sets.  The CPU
+    run is the port that test holds to line3d_tpu, so this closes the chain
+    card -> port on the CPU -> line3d_tpu."""
+    import torch
+    from line3d_tpu_torch import Line3D, L3DConfig
+    from line3d_tpu_torch.match import engine
+    from line3d_tpu_torch.utils import compare
+    from line3d_tpu_torch.utils.demo import make_facade_scene
+    cfg = L3DConfig()
+    scene, cams = make_facade_scene(config=cfg, device="cpu",
+                                    **REDUCED_FACADE)
+
+    def card_run():
+        l3d = feed(Line3D(config=cfg), scene, cams)
+        l3d.compute_3d_model()
+        torch.cuda.synchronize()
+        return l3d
+    g, counts = _counted(card_run, "facade8")
+    t0 = time.perf_counter()
+    c = feed(Line3D(config=cfg, use_sharded_engine=False, device="cpu"),
+             scene, cams)
+    c.compute_3d_model()
+    t_cpu = time.perf_counter() - t0
+    for l3d, where in ((g, "card"), (c, "CPU")):
+        require(l3d.stats["match_overflow"] == 0 and
+                l3d.stats["views_recollin_exact"] == 1,
+                f"facade8: the {where} run overflowed or did not re-derive "
+                "view 5's collinearity")
+
+    diffs = compare.verified_differences(c.matches, g.matches)
+    per_view = {v: (n, len(oc), len(og))
+                for v, (n, _, oc, og) in diffs.items()}
+    for v, (n, oc, og) in per_view.items():
+        require(oc + og < VERIFIED_DIFF_MAX * n,
+                f"facade8: view {v}: verified matches differ on {oc} + {og} "
+                f"of {n}")
+    picks = compare.best_pick_differences(c.best, g.best, c.matches,
+                                          g.matches, rel=NEAR_TIE_REL)
+    ties = {}
+    ctx_c = engine.ViewContext(c.scene, c.cameras, cfg)
+    ctx_g = engine.ViewContext(g.scene, g.cameras, cfg)
+    for v in sorted({u[0] for u in picks["untraced"]}):
+        tc, tg = {}, {}
+        engine.match_views(ctx_c, c.neighbors, [v], device_selection=False,
+                           tables=tc)
+        engine.match_views(ctx_g, g.neighbors, [v], tables=tg)
+        tc = {k: x.numpy() for k, x in tc[v].items()}
+        tg = {k: x.cpu().numpy() for k, x in tg[v].items()}
+        for _, s, pick_c, pick_g, _gap in [u for u in picks["untraced"]
+                                           if u[0] == v]:
+            slots = (tc["cam"][s], tc["tgt"][s], tc["valid"][s])
+            confs = [tc["conf"][s]]
+            if all(np.array_equal(tg[k][s], tc[k][s])
+                   for k in ("cam", "tgt", "valid")):
+                confs.append(tg["conf"][s])
+            gap64, err32 = compare.float64_tie(
+                c.scene, c.cameras, c.neighbors, cfg, v, s, slots, confs,
+                pick_c, pick_g)
+            ties[(v, s)] = (float(gap64), float(err32))
+            require(gap64 < err32,
+                    f"facade8: view {v} segment {s}: the card picks "
+                    f"{pick_g[:2]}, the CPU {pick_c[:2]}: not a near-tie, "
+                    f"not traced, float64 gap {gap64:.3e} >= float32 error "
+                    f"{err32:.3e}")
+    with tempfile.TemporaryDirectory() as d:
+        paths = [os.path.join(d, f"{k}.txt") for k in ("card", "cpu")]
+        _txt_model(g, paths[0])
+        _txt_model(c, paths[1])
+        models = compare.compare_models(*paths)
+    out = dict(lines_card=models["lines_a"], lines_cpu=models["lines_b"],
+               shared_member_sets=models["shared"],
+               only_card=models["only_a"], only_cpu=models["only_b"],
+               verified_per_view={v: dict(n_cpu=n, only_cpu=oc,
+                                          only_card=og)
+                                  for v, (n, oc, og) in per_view.items()},
+               best_matches=dict(card=picks["n_b"], cpu=picks["n_a"],
+                                 differ=picks["differ"],
+                                 near_ties=picks["near_tie"],
+                                 traced=picks["traced"],
+                                 float64_ties=len(ties)),
+               largest_confidence_gap=picks["max_gap"],
+               float64_ties={f"{v}:{s}": t for (v, s), t in ties.items()},
+               cpu_seconds=round(t_cpu, 1))
+    log(f"[facade8] card vs CPU: {json.dumps(out)}")
+    return dict(out, counts=counts)
 
 
 # host synchronisations of one exact view's match step with device
@@ -2310,6 +2425,7 @@ def main() -> int:
                                      cp["c"]["counts"][key]],
                     launches_stress=sp["counts"][key],
                     launches_cli=cl["counts"][key],
+                    launches_reduced_facade=fa["reduced"]["counts"][key],
                     held_at_cli_shapes=held_cli[key],
                     **multiproc_launches(key))
 

@@ -4,6 +4,8 @@ format documented README.txt:177-186).
 """
 from __future__ import annotations
 
+import numpy as np
+
 
 def save_stl(result: list, filename: str):
     """Degenerate-facet STL: each 3D sub-segment becomes one facet with the
@@ -55,6 +57,32 @@ def save_txt(result: list, filename: str, get_segment_2d=None,
                 else:
                     parts += ["0", "0", "0", "0"]
             f.write(" ".join(parts) + " \n")
+
+
+def load_txt(filename: str):
+    """Parse a TXT result file back into a list of (segments3d [n, 2, 3]
+    float64, residuals [(camID, segID, [x1, y1, x2, y2]), ...]), one entry
+    per 3D line (line3d_tpu's io.writers.load_txt)."""
+    out = []
+    with open(filename) as f:
+        for raw in f:
+            tok = raw.split()
+            if not tok:
+                continue
+            p = 0
+            n = int(tok[p]); p += 1
+            segs = np.array([float(x) for x in tok[p:p + 6 * n]],
+                            np.float64).reshape(n, 2, 3)
+            p += 6 * n
+            m = int(tok[p]); p += 1
+            res = []
+            for _ in range(m):
+                cam, seg = int(tok[p]), int(tok[p + 1])
+                coords = [float(x) for x in tok[p + 2:p + 6]]
+                res.append((cam, seg, coords))
+                p += 6
+            out.append((segs, res))
+    return out
 
 
 def compare_txt(got_path: str, want_path: str, rtol: float = 1e-5,

@@ -23,7 +23,6 @@ import pytest
 cv2 = pytest.importorskip("cv2")
 
 from line3d_tpu import cli as jcli
-from line3d_tpu.io.writers import load_txt
 from line3d_tpu.scene import view_similarities_from_worldpoints
 from line3d_tpu_torch import Line3D, L3DConfig, cli as tcli
 from line3d_tpu_torch.io import images as timg, writers
@@ -120,7 +119,7 @@ def write_nvm_dataset(root, syn, ext=".png"):
 
 def _gt_median_error(txt, syn):
     errs = []
-    for segs3d, _res in load_txt(txt):
+    for segs3d, _res in writers.load_txt(txt):
         pts = segs3d.reshape(-1, 3)
         errs.append(min(
             np.linalg.norm(np.cross(pts - A, (B - A) / np.linalg.norm(B - A)),
@@ -134,7 +133,7 @@ def _hold_to_reference(txt_t, txt_j, syn):
     assert err < 0.05 and n_t >= 6, (err, n_t)
     rep = writers.compare_txt(txt_t, txt_j)
     if not rep["ok"]:
-        n_j = len(load_txt(txt_j))
+        n_j = len(writers.load_txt(txt_j))
         assert abs(n_t - n_j) <= 1, (n_t, n_j, rep)
     return rep
 

@@ -102,3 +102,42 @@ def selection_tables(kind, S, M=48, N=5, St=40, seed=3):
     depths = rng.uniform(0.5, 20.0, (S, M, 4)).astype(np.float32)
     depths[~valid] = 0
     return cam, tgt, depths, valid, conf
+
+
+def to_reference(obj):
+    """A copy of one of the port's stage objects as line3d_tpu's class of
+    the same name, field for field (arrays copied, nothing re-derived), so
+    the reference's stages read the port's outputs bit for bit:
+    BestMatches, ViewMatches, CollinMaps (its per-view dicts, flat pair
+    arrays and drop counters), AffinityGraph, SceneTransform, CameraSet."""
+    import dataclasses
+    from line3d_tpu.cluster import affinity as ja
+    from line3d_tpu.core import cameras as jcam, conditioning as jcond
+    from line3d_tpu.match import collinearity as jc, engine as je
+
+    def arr(x):
+        return np.array(x) if isinstance(x, np.ndarray) else x
+    if isinstance(obj, list) and hasattr(obj, "flat_view"):
+        out = jc.CollinMaps({i: dict(js) for i, js in d.items()}
+                            for d in obj)
+        for f in ("flat_view", "flat_i", "flat_j", "flat_w",
+                  "dropped_per_view"):
+            setattr(out, f, arr(getattr(obj, f)))
+        out.dropped_total = int(obj.dropped_total)
+        return out
+    cls = {c.__name__: c for c in (
+        je.BestMatches, je.ViewMatches, ja.AffinityGraph,
+        jcond.SceneTransform, jcam.CameraSet)}[type(obj).__name__]
+    out = cls.__new__(cls)
+    for f in dataclasses.fields(cls):
+        setattr(out, f.name, arr(getattr(obj, f.name)))
+    return out
+
+
+def relabel(labels):
+    """Cluster labels renumbered by first occurrence (0, 1, 2, ...)."""
+    _, first, inv = np.unique(np.asarray(labels), return_index=True,
+                              return_inverse=True)
+    rank = np.empty(len(first), np.int64)
+    rank[np.argsort(first)] = np.arange(len(first))
+    return rank[inv.reshape(-1)]
