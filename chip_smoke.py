@@ -26,7 +26,8 @@ exits non-zero):
                counterpart of scripts/tpu_validate.py's phase 2: the house
                pair at S=384 and facade view 0 x 10 neighbors, held against
                the plain twin, and K1's plane held to K5's valid plane;
-               CUDA-event times.
+               K5's fast reciprocals and roots against the IEEE operations
+               on every float of their range; CUDA-event times.
   5. peak      K6: the card's float32 FMA rate (`measure_fp32_peak`, the
                marginal-rate protocol of bench.py), and the chain held
                against its twin.
@@ -155,15 +156,34 @@ HOUSE10_DIFFUSION_OUTSIDE = [(10, "-0.173167", "-0.170758"),
 # triangulate only the survivors of its cheap gates: the redesign keeps
 # each pair's arithmetic, so the counts must not move
 K1_TWIN_DISAGREE = {1: 1, 10: 8}
-# f32 operations per pair, counted from the kernel sources (each add,
-# multiply, compare, divide, square root, exp or acos counts one): K1's
-# cheap gates (4 intersections, 2 overlap ratios, the gate, the masks) and
-# its triangulation gates (4 ray normalizations, 4 two-ray depths); K5 does
-# both for every pair; K4's gate per pair and its regate per candidate
-# within the quota; the scoring kernel per staged slot, per spatial-gate
-# test and per pair that passes the spatial gate
-K1_CHEAP_OPS, K1_TRI_OPS, K4_OPS, K4_REGATE_OPS = 254, 235, 63, 21
+# f32 operations, counted from the kernel sources (each add, multiply,
+# compare, divide, square root, exp or acos counts one): K4's gate per
+# pair and its regate per candidate within the quota; the scoring kernel
+# per staged slot, per spatial-gate test and per pair that passes the
+# spatial gate
+K4_OPS, K4_REGATE_OPS = 63, 21
 SCORE_SLOT_OPS, SCORE_GATE_OPS, SCORE_PAIR_OPS = 48, 8, 73
+# The pair kernels' (K1, K5) f32 operations, counted from
+# csrc/pair_math.cuh as the function needs them (see pair_ops): each add,
+# subtract, multiply, compare, min/max, reciprocal and square root counts
+# one (abs, negation, selects and logic none), and a value counts once
+# where the source computes it again or its negation ((c-a)^2 of (a-c)^2),
+# and once per segment or per neighbor where it depends on nothing else.
+# Per pair: the cheap gates, 4 intersections (13 each), 2 overlap ratios
+# (51 each) and the overlap gate (8); the triangulation, 4 ray
+# normalizations (23 each) and 4 two-ray terms (22 each: the three dot
+# products that mix the pair, the denominator, the numerator, its test);
+# K1's sign tests of its survivors (4 products, 4 compares), K5's depths
+# (4 reciprocals, 4 products, 4 compares).  Per segment, each source once
+# and each neighbor's target once: its line (5), its two normalized rays
+# (46), its mask test (1), its overlap length and its two tests (7); per
+# segment and neighbor, its two epipolar lines (24).  The segments' terms
+# of the two-ray depths, which K5 needs for every pair: a source's a (10),
+# its d against each neighbor (10), a target's c and e (20).  Per
+# neighbor: lo^2, hi^2 and w0 (5).
+PAIR_CHEAP_OPS, PAIR_TRI_OPS, K1_SIGN_OPS, K5_DEPTH_OPS = 162, 180, 8, 12
+SEG_OPS, SEG_NB_OPS, NB_OPS = 59, 24, 5
+K5_SRC_OPS, K5_SRC_NB_OPS, K5_TGT_OPS = 10, 10, 20
 # the card's float32 rate outside the tensor cores and its memory rate
 # (NVIDIA H100 SXM data sheet), the denominators of every bound.  67e12
 # counts a fused multiply-add as two operations; the kernels are built with
@@ -239,6 +259,21 @@ def bound_ms(ops: float, nbytes: float):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def pair_ops(Ss: int, St: int, N: int, survivors=None) -> int:
+    """f32 operations that one view's Ss sources against N neighbors of St
+    targets need: K1's valid plane when `survivors` (its cheap-gate
+    survivors, each triangulated) is given, else K5's, every pair
+    triangulated.  K1's count leaves out the segments' two-ray terms of
+    its survivors' segments (20 a segment at most, under 1e-4 of it)."""
+    pairs = N * Ss * St
+    ops = (pairs * PAIR_CHEAP_OPS + (Ss + N * St) * SEG_OPS
+           + N * (Ss + St) * SEG_NB_OPS + N * NB_OPS)
+    if survivors is not None:
+        return ops + survivors * (PAIR_TRI_OPS + K1_SIGN_OPS)
+    return (ops + pairs * (PAIR_TRI_OPS + K5_DEPTH_OPS) + Ss * K5_SRC_OPS
+            + N * Ss * K5_SRC_NB_OPS + N * St * K5_TGT_OPS)
+
+
 def score_gate_counts(cam, depths, valid, N, spatial_k, rows=32):
     """(sum over rows of need^2, the (m, m2) pairs passing the scoring
     kernel's spatial gate with both slots valid, m2 in a camera and
@@ -280,6 +315,63 @@ def facade_inputs(device):
     tr = compute_conditioning(cams.C)
     cams.transform(tr.Qinv, tr.scale)
     return cfg, scene, cams, nbrs
+
+
+def pair_cases(dev) -> dict:
+    """{name: the K1/K5 arguments} on `dev`: the house pair at S = 384
+    (scripts/tpu_validate.py's case: house views 1 and 3); facade view 0
+    against its 10 neighbors (1280 x 1280 pairs each) and against its
+    first; house view 1 against 4 neighbors padded to Ss = 200, St = 328,
+    and the same with 8 segments a view 1e19 and 1e21 times farther out,
+    where K5 meets operands beyond its fast reciprocals' domain."""
+    import torch
+    from line3d_tpu_torch.match import engine
+    from line3d_tpu_torch.utils.synthetic import make_scene
+
+    def f32(x):
+        return torch.as_tensor(np.asarray(x, np.float32), device=dev)
+
+    def b(x):
+        return torch.as_tensor(np.asarray(x, bool), device=dev)
+
+    syn = make_scene(num_views=6, device=dev)
+    cams, sc = syn.cameras, syn.scene
+    out = {}
+    S = 384
+    segs = np.zeros((2, S, 4), np.float32)
+    mask = np.zeros((2, S), bool)
+    ns = min(S, sc.segments.shape[1])
+    segs[0, :ns], segs[1, :ns] = sc.segments[1][:ns], sc.segments[3][:ns]
+    mask[0, :ns], mask[1, :ns] = sc.seg_mask[1][:ns], sc.seg_mask[3][:ns]
+    out["house S=384"] = (
+        f32(segs[0]), b(mask[0]), f32(segs[1:2]), b(mask[1:2]),
+        f32(cams.fundamental(1, 3)[None]), f32(cams.RtKinv[1]),
+        f32(cams.RtKinv[3][None]), f32(cams.C[1]), f32(cams.C[3][None]))
+    cfg, scene, fcams, nbrs = facade_inputs(dev)
+    ctx = engine.ViewContext(scene, fcams, cfg)
+    for key, nb in (("facade view 0 N=10", nbrs[0]),
+                    ("facade view 0 N=1", nbrs[0][:1])):
+        segs_nb, mask_nb, F_nb, RtKinv_nb, C_nb, _ = ctx.neighbor_arrays(
+            0, np.asarray(nb, np.int64))
+        out[key] = (scene.segments_t[0], scene.seg_mask_t[0], segs_nb,
+                    mask_nb, F_nb, ctx.RtKinv32[0], RtKinv_nb, ctx.C32[0],
+                    C_nb)
+    nb = np.array([2, 3, 5, 0])
+    F = cams.fundamentals_for_pairs(np.stack([np.full(4, 1), nb], 1))
+    src, msrc = np.zeros((200, 4), np.float32), np.zeros(200, bool)
+    tgt, mtgt = np.zeros((4, 328, 4), np.float32), np.zeros((4, 328), bool)
+    n1 = sc.segments.shape[1]
+    src[:n1], msrc[:n1] = sc.segments[1], sc.seg_mask[1]
+    tgt[:, :n1], mtgt[:, :n1] = sc.segments[nb], sc.seg_mask[nb]
+    for key in ("house ragged 200x328", "house ragged, far segments"):
+        if key.endswith("far segments"):
+            far = np.repeat([1e19, 1e21], 4)[:, None]
+            src[:8] *= far
+            tgt[:, :8] *= far
+        out[key] = (f32(src), b(msrc), f32(tgt), b(mtgt), f32(F),
+                    f32(cams.RtKinv[1]), f32(cams.RtKinv[nb]),
+                    f32(cams.C[1]), f32(cams.C[nb]))
+    return out
 
 
 def phase_device():
@@ -348,7 +440,8 @@ def phase_kernels():
         require(n_valid <= n_surv, "K1 has fewer survivors than valid pairs")
     ms = cuda_ms(lambda: k1.pair_valid_cuda(*a), 20)
     plain_ms = cuda_ms(lambda: k1.pair_valid_plain(*a), 3)
-    ops = got.numel() * K1_CHEAP_OPS + n_surv * K1_TRI_OPS
+    ops = pair_ops(got.shape[1], got.shape[2], got.shape[0],
+                   survivors=n_surv)
     nbytes = sum(x.numel() * x.element_size() for x in a[:9]) + got.numel()
     b_ms, b_by = bound_ms(ops, nbytes)
     log(f"[kernels] K1 N={N}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms; "
@@ -627,32 +720,11 @@ def phase_validate():
     shared valid pair within rtol 1e-3 / atol 1e-4 of the twin.
     """
     import torch
-    from line3d_tpu_torch.match import engine, pairwise_cuda as k5
-    from line3d_tpu_torch.utils.synthetic import make_scene
+    from line3d_tpu_torch.match import pairwise_cuda as k5
+    from line3d_tpu_torch.native import cuda
     dev = torch.device("cuda")
-    f32 = lambda x: torch.as_tensor(np.asarray(x, np.float32),  # noqa: E731
-                                    device=dev)
-
-    # scripts/tpu_validate.py's case: house views 1 and 3 padded to S=384
-    syn = make_scene(num_views=6)
-    cams, sc = syn.cameras, syn.scene
-    S = 384
-    segs = np.zeros((2, S, 4), np.float32)
-    mask = np.zeros((2, S), bool)
-    ns = min(S, sc.segments.shape[1])
-    segs[0, :ns], segs[1, :ns] = sc.segments[1][:ns], sc.segments[3][:ns]
-    mask[0, :ns], mask[1, :ns] = sc.seg_mask[1][:ns], sc.seg_mask[3][:ns]
-    house = (f32(segs[0]), torch.as_tensor(mask[0], device=dev),
-             f32(segs[1:2]), torch.as_tensor(mask[1:2], device=dev),
-             f32(cams.fundamental(1, 3)[None]), f32(cams.RtKinv[1]),
-             f32(cams.RtKinv[3][None]), f32(cams.C[1]), f32(cams.C[3][None]))
-    # facade view 0 against its 10 neighbors, 1280 x 1280 each
-    cfg, scene, fcams, nbrs = facade_inputs(dev)
-    ctx = engine.ViewContext(scene, fcams, cfg)
-    nb = np.asarray(nbrs[0], np.int64)
-    segs_nb, mask_nb, F_nb, RtKinv_nb, C_nb, _ = ctx.neighbor_arrays(0, nb)
-    facade = (scene.segments_t[0], scene.seg_mask_t[0], segs_nb, mask_nb,
-              F_nb, ctx.RtKinv32[0], RtKinv_nb, ctx.C32[0], C_nb)
+    cases = pair_cases(dev)
+    house, facade = cases["house S=384"], cases["facade view 0 N=10"]
 
     k5.LAUNCHES_DENSE = 0
     outs = [k5.pair_dense(*a) for a in (house, facade)]
@@ -708,12 +780,24 @@ def phase_validate():
             f"{bool(k1_plane[n_, s_, t_])}, K5 {bool(vg[n_, s_, t_])}, K5 "
             f"depths {outs[1][0][:, n_, s_, t_].tolist()}")
     require(not differ, "K1's plane differs from K5's valid plane")
+    # K5's fast reciprocals and roots (csrc/pair_math.cuh FastRnOps)
+    # against the IEEE operations on every float of their range
+    counts = torch.zeros(4, dtype=torch.int64, device=dev)
+    cuda.check(cuda.lib().l3d_rn_ops_check(counts.data_ptr(),
+                                           cuda.stream_of(counts)),
+               "l3d_rn_ops_check")
+    n_rcp, bad_rcp, n_isq, bad_isq = counts.tolist()
+    log(f"[validate] K5's fast 1/x on {n_rcp} floats: {bad_rcp} differ from "
+        f"the IEEE operation; fast 1/sqrt(x) on {n_isq}: {bad_isq} differ")
+    require(n_rcp == 2 * 252 * 2 ** 23 and n_isq == 226 * 2 ** 23 and
+            bad_rcp == 0 and bad_isq == 0,
+            "K5's fast reciprocals differ from the IEEE operations")
     ms = cuda_ms(lambda: k5.pair_dense_cuda(*facade), 10)
     plain_ms = cuda_ms(lambda: k5.pair_dense_plain(*facade), 2)
-    pairs = vg.numel()
-    b_ms, b_by = bound_ms(pairs * (K1_CHEAP_OPS + K1_TRI_OPS),
+    N, Ss, St = vg.shape
+    b_ms, b_by = bound_ms(pair_ops(Ss, St, N),
                           sum(x.numel() * x.element_size() for x in facade)
-                          + pairs * 17)
+                          + vg.numel() * 17)
     log(f"[validate] K5 facade N=10: kernel {ms:.3f} ms, plain "
         f"{plain_ms:.3f} ms; bound {b_ms:.4f} ms by {b_by}; launches in "
         f"the validation path: {launches}")
@@ -2460,7 +2544,7 @@ def main() -> int:
                 ("ms", "plain_ms", "bound_ms", "bound_by", "old_prep_ms")},
              at_m256=k["score"][256]),
         dict(name="pair_dense (K5)", route="cuda",
-             source="line3d_tpu_torch/csrc/pair_valid.cu",
+             source="line3d_tpu_torch/csrc/pair_dense.cu",
              replaces="line3d_tpu/match/pairwise_pallas.py:203",
              path="validate", launches=k5["launches"],
              launches_per_facade_run=cnt["pair_dense"], library_ms=None,

@@ -3,10 +3,12 @@
 `pair_valid` launches the CUDA kernel `csrc/pair_valid.cu` (replacing
 `line3d_tpu/match/pairwise_pallas.py:_kernel_valid`) for CUDA tensors and
 runs `pair_valid_plain`, the plain PyTorch twin, for CPU tensors.
-`pair_dense` does the same for K5, the same source built with its depth
-flag (replacing `pairwise_pallas.py:_kernel`, `match_pair_dense_pallas`):
-the four depth planes beside the valid plane.  There is no fallback: a CUDA
-tensor either goes through the kernel or raises.
+`pair_dense` does the same for K5, `csrc/pair_dense.cu` (replacing
+`pairwise_pallas.py:_kernel`, `match_pair_dense_pallas`): the four depth
+planes beside the valid plane.  The two kernels evaluate each pair with the
+same expressions (`csrc/pair_math.cuh`), so K1's plane equals K5's valid
+plane.  There is no fallback: a CUDA tensor either goes through the kernel
+or raises.
 
 The match engine takes K1; K5 is the dense form the validation path holds
 against the plain formulation (`scripts/tpu_validate.py`'s phase 2 in the

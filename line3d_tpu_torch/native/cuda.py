@@ -45,14 +45,17 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "l3d_pair_valid": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
     "l3d_pair_dense": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
+    "l3d_rn_ops_check": [_P, _P],
     "l3d_collin_pairs": [_P, _P] + [_I] * 4 + [_F] * 3 + [_I] + [_P] * 5,
     "l3d_score": [_P] * 8 + [_F] * 4 + [_I] * 3 + [_P, _P, _I, _P],
     "l3d_score_scratch_bytes": [_I, _I, _I, _I],
     "l3d_fma_peak": [_P, _F, _F, _I, _I, _P, _P],
+    "l3d_error_string": [_I],
 }
 
 # return types other than a CUDA error code (c_int)
-_RESTYPES = {"l3d_score_scratch_bytes": ctypes.c_longlong}
+_RESTYPES = {"l3d_score_scratch_bytes": ctypes.c_longlong,
+             "l3d_error_string": ctypes.c_char_p}
 
 
 def sources() -> list:
@@ -136,8 +139,6 @@ def lib():
                 fn = getattr(handle, name)
                 fn.argtypes = argtypes
                 fn.restype = _RESTYPES.get(name, ctypes.c_int)
-            handle.l3d_error_string.argtypes = [ctypes.c_int]
-            handle.l3d_error_string.restype = ctypes.c_char_p
             _lib = handle
         return _lib
 

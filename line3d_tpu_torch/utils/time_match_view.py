@@ -7,6 +7,8 @@ runs and their cluster stage.
         [--views [0 12]] [--repeats 50] [--facade N] [--label NAME]
         [--facade-config exact|facaded|facadeba ...] [--fit-tiles K ...]
         [--save FILE]
+    python3 line3d_tpu_torch/utils/time_match_view.py [--root DIR]
+        --views --pair-kernels [--repeats 20] [--sass DIR] [--save FILE]
     python3 line3d_tpu_torch/utils/time_match_view.py --compare A B
 
 `--root` names the checkout whose `line3d_tpu_torch` is timed (by default
@@ -45,6 +47,22 @@ files (no card needed) and prints, per output, how many values differ and
 by how much, and whether the TXT models are equal byte for byte (else
 A's tokens against B's as `compare_txt` reads them).
 
+`--pair-kernels` runs kernels K1 and K5 of the timed tree, through its
+`match/pairwise_cuda` wrappers, on the pair inputs of this checkout's
+`chip_smoke.py` (`pair_cases`: the house pair at S = 384, facade view 0
+against its 10 neighbors and its first, a ragged 200 x 328 house case and
+the same with segments 1e19-1e21 out): per case, whether K1's plane
+equals K5's valid plane; with `--save`, K5's valid plane, its four depth
+planes as int32 bit patterns and K1's plane, which `--compare` then
+counts value for value against another tree's.  At facade view 0 x 10 it
+times K1 and K5 (chip_smoke's `cuda_ms`, `--repeats` launches after one
+warm-up) beside their bounds (chip_smoke's `pair_ops` and `bound_ms`),
+and prints the tree's `ptxas` register, spill and shared-memory lines of
+the pair kernels; `--sass DIR` also writes `cuobjdump -sass` of its
+library there and prints, per pair kernel, its instructions, its
+reciprocal, square-root and call instructions and its longest loop.  Run
+it for two trees in turns (other, this, this, other) to compare them.
+
 The timing mode prints the card as `nvidia-smi` names it and one JSON
 line.
 """
@@ -54,11 +72,14 @@ import argparse
 import hashlib
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import tempfile
 import time
 import warnings
+from collections import Counter
 
 
 def memcpy_totals(prof) -> dict:
@@ -298,6 +319,131 @@ def facade_runs(n_warm: int, config: str = "exact", fit_tiles=(),
     return rec
 
 
+def _chip_smoke():
+    """This checkout's chip_smoke.py as a module (its pair inputs, timer
+    and operation counts), whichever tree --root names."""
+    import importlib.util
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__)))), "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def ptxas_lines(log_path) -> list:
+    """The pair kernels' entry, register and spill lines of an nvcc log
+    (`-Xptxas -v`)."""
+    keep, on = [], False
+    with open(log_path) as f:
+        for ln in (x.strip() for x in f):
+            if "Compiling entry function" in ln:
+                on = "pair" in ln
+            if on and ("Compiling entry" in ln or "registers" in ln or
+                       "spill" in ln):
+                keep.append(ln)
+    return keep
+
+
+_SASS_LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?"
+                        r"([A-Z][A-Z0-9_.]*)([^;]*);")
+
+
+def sass_summary(lib_path, out_path) -> dict:
+    """cuobjdump -sass of a library into out_path; per pair kernel: its
+    instructions, the reciprocal / square-root / call ones, and the
+    instructions of its longest loop (a backward branch to its target,
+    given as an address or as a label)."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    r = subprocess.run([tool, "-sass", lib_path], capture_output=True,
+                       text=True)
+    with open(out_path, "w") as f:
+        f.write(r.stdout + r.stderr)
+    out, fn, body, labels, pending = {}, None, [], {}, []
+
+    def close():
+        if fn is None or "pair" not in fn:
+            return
+        ops = Counter(op for _, op, _ in body)
+        loop = 0
+        for i, (a, op, rest) in enumerate(body):
+            m = re.search(r"0x([0-9a-f]+)", rest)
+            lab = re.search(r"\((\.L_x_\d+)\)", rest)
+            tgt = int(m.group(1), 16) if m else labels.get(
+                lab.group(1) if lab else None)
+            if op.startswith("BRA") and tgt is not None and tgt < a:
+                loop = max(loop, sum(1 for x, _, _ in body[:i + 1]
+                                     if x >= tgt))
+        out[fn] = dict(
+            instructions=len(body), longest_loop=loop,
+            mufu_rcp=ops["MUFU.RCP"], mufu_rsq=ops["MUFU.RSQ"],
+            mufu_sqrt=ops["MUFU.SQRT"], fchk=ops["FCHK"],
+            calls=sum(v for k, v in ops.items() if k.startswith("CALL")),
+            top=ops.most_common(12))
+
+    for ln in (r.stdout or "").splitlines():
+        if "Function :" in ln:
+            close()
+            fn, body, labels, pending = \
+                ln.split("Function :")[1].strip(), [], {}, []
+            continue
+        lab = re.match(r"\s*(\.L_x_\d+):", ln)
+        if lab:
+            pending.append(lab.group(1))
+            continue
+        m = _SASS_LINE.search(ln)
+        if m and fn is not None:
+            a = int(m.group(1), 16)
+            for name in pending:
+                labels[name] = a
+            pending = []
+            body.append((a, m.group(2), m.group(3)))
+    close()
+    return out
+
+
+def pair_kernel_runs(repeats: int, saved: dict | None = None,
+                     sass_dir: str = "") -> dict:
+    """K1 and K5 of the timed tree on chip_smoke.py's pair cases (see the
+    module docstring); their outputs into saved."""
+    import numpy as np
+    import torch
+    from line3d_tpu_torch.match import pairwise_cuda as pc
+    from line3d_tpu_torch.native import cuda
+    cs = _chip_smoke()
+    cuda.lib()
+    out = dict(ptxas=ptxas_lines(cuda.LOG_PATH), cases={})
+    if sass_dir:
+        os.makedirs(sass_dir, exist_ok=True)
+        out["sass"] = sass_summary(cuda.LIB_PATH,
+                                   os.path.join(sass_dir, "lib.sass"))
+    cases = cs.pair_cases(torch.device("cuda"))
+    for name, a in cases.items():
+        depths, v5 = pc.pair_dense_cuda(*a)
+        v1 = pc.pair_valid_cuda(*a)
+        out["cases"][name] = dict(pairs=v5.numel(), valid=int(v5.sum()),
+                                  k1_differs_from_k5=int((v1 != v5).sum()))
+        if saved is not None:
+            key = "pair_" + re.sub(r"\W+", "_", name)
+            saved[key + "_k5_valid"] = v5.cpu().numpy()
+            saved[key + "_k5_depth_bits"] = \
+                depths.view(torch.int32).cpu().numpy()
+            saved[key + "_k1"] = v1.cpu().numpy()
+    a = cases["facade view 0 N=10"]
+    N, Ss, St = a[2].shape[0], a[0].shape[0], a[2].shape[1]
+    stats = torch.zeros(2, dtype=torch.int64, device=a[0].device)
+    pc.pair_valid_cuda(*a, stats=stats)
+    nbytes = sum(x.numel() * x.element_size() for x in a)
+    b1 = cs.bound_ms(cs.pair_ops(Ss, St, N, survivors=int(stats[0])),
+                     nbytes + N * Ss * St)
+    b5 = cs.bound_ms(cs.pair_ops(Ss, St, N), nbytes + 17 * N * Ss * St)
+    out["facade view 0 N=10"] = dict(
+        k1_ms=cs.cuda_ms(lambda: pc.pair_valid_cuda(*a), repeats),
+        k5_ms=cs.cuda_ms(lambda: pc.pair_dense_cuda(*a), repeats),
+        k1_bound=b1, k5_bound=b5, survivors=int(stats[0]))
+    return out
+
+
 def _compare_txt_bytes(got: bytes, want: bytes) -> dict:
     """`io.writers.compare_txt` of two TXT models held as bytes: integer
     tokens that differ, float tokens outside rtol 1e-5 / atol 1e-6, the
@@ -329,6 +475,9 @@ def compare(path_a, path_b) -> dict:
         if x.shape != y.shape:
             rep[k] = dict(shape_a=x.shape, shape_b=y.shape)
             continue
+        if x.dtype.kind in "biu":
+            rep[k] = dict(n=int(x.size), differ=int((x != y).sum()))
+            continue
         d = np.abs(x - y)
         rep[k] = dict(n=int(x.size), differ=int((d > 0).sum()),
                       max_abs=float(d.max(initial=0.0)),
@@ -351,6 +500,8 @@ def main(argv=None) -> int:
     ap.add_argument("--save", default="")
     ap.add_argument("--compare", nargs=2, metavar=("A", "B"))
     ap.add_argument("--label", default="")
+    ap.add_argument("--pair-kernels", action="store_true")
+    ap.add_argument("--sass", default="")
     args = ap.parse_args(argv)
     sys.path.insert(0, os.path.abspath(args.root))
     if args.compare:
@@ -398,6 +549,9 @@ def main(argv=None) -> int:
             rec[name]["copies"] = profiled(fn)
         out["views"][str(v)] = rec
     saved = {} if args.save else None
+    if args.pair_kernels:
+        out["pair_kernels"] = pair_kernel_runs(args.repeats, saved,
+                                               args.sass)
     if args.facade:
         for config in args.facade_config:
             key = "facade" if config == "exact" else f"facade_{config}"

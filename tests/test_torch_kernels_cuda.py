@@ -7,7 +7,11 @@ Run them on the card with
 use).
 Tolerances: K1 and K5 at most 4e-4 of the valid pairs may disagree with
 the twin, and K1's plane equals K5's valid plane pair for pair; K5's
-depths rtol 1e-3 / atol 1e-4 on the pairs valid in both; K4's pair lists
+depths rtol 1e-3 / atol 1e-4 on the pairs valid in both, and bit-equal
+with and without far segments on the pairs they do not touch, and to
+their IEEE evaluation (tests/torch_port_helpers.pair_dense_ieee) where
+the fast reciprocals do not apply; K5's fast
+reciprocals equal to the IEEE operations on every float of their range; K4's pair lists
 and counts identical to its plain twin's and its weights bit-equal;
 scoring rtol 2e-3 / atol 2e-4, where fewer than 1e-4 of the scored slots may differ by a support whose
 confidence sits at the threshold, at widths that fit a block's shared
@@ -34,7 +38,7 @@ from line3d_tpu_torch.match import collinearity as col, \
 from line3d_tpu_torch.utils import peak as k6
 from line3d_tpu_torch.utils.synthetic import make_scene
 from torch_port_helpers import HOUSE10_DIFFUSION_OUTSIDE, HOUSE10_OUTSIDE, \
-    SELECTION_KINDS, selection_tables
+    SELECTION_KINDS, pair_dense_ieee, selection_tables, stereo_views
 
 pytestmark = pytest.mark.cuda
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -386,7 +390,7 @@ def _grow(x, n, dim):
 @pytest.mark.parametrize("S,St", [(384, 384), (200, 328)])
 def test_pair_dense_kernel_matches_plain(dev, S, St):
     """K5 at tpu_validate's S=384 and at a ragged size (no multiple of the
-    64 x 4 block), 4 neighbors of house view 1."""
+    128-target x 32-source block), 4 neighbors of house view 1."""
     a = list(_house_view(dev))
     a[0], a[1] = _grow(a[0], S, 0), _grow(a[1], S, 0)
     a[2], a[3] = _grow(a[2], St, 1), _grow(a[3], St, 1)
@@ -395,6 +399,99 @@ def test_pair_dense_kernel_matches_plain(dev, S, St):
     assert k1.LAUNCHES_DENSE == n0 + 1 and k1.LAUNCHES == v0
     assert got[0].shape == (4, 4, S, St) and got[1].shape == (4, S, St)
     _check_dense(got, k1.pair_dense_plain(*a))
+
+
+@pytest.mark.parametrize("n_nb,Ss,St", [(1, 90, 150), (3, 90, 150),
+                                        (3, 70, 257)])
+def test_pair_dense_edge_cases(dev, n_nb, Ss, St):
+    """K5 against its twin and K1's plane where the tile's edges and the
+    degenerate inputs lie: St no multiple of the 128-target block, Ss no
+    multiple of its 32 sources and Ss != St, N = 1 and 3, a masked source
+    row, zero-length segments on both sides, and pairs whose epipolar
+    transfer fails (|iz| <= eps)."""
+    a, flat_s, flat_t = stereo_views(n_nb, Ss, St, dev=dev)
+    n0, v0 = k1.LAUNCHES_DENSE, k1.LAUNCHES
+    got = k1.pair_dense(*a)
+    assert k1.LAUNCHES_DENSE == n0 + 1 and k1.LAUNCHES == v0
+    depths, valid = got
+    assert depths.shape == (4, n_nb, Ss, St) and valid.shape == (n_nb, Ss, St)
+    assert bool(torch.isfinite(depths).all())
+    want = k1.pair_dense_plain(*a)
+    _check_dense(got, want)
+    assert torch.equal(k1.pair_valid_cuda(*a), valid)
+    assert not valid[:, 2].any() and not valid[:, 0].any()
+    assert not valid[:, :, 1].any()
+    flat = flat_s[None, :, None] & flat_t[:, None, :]
+    flat[:, 0] = False
+    flat[:, :, 1] = False
+    assert int(flat[:, :60, :60].sum()) > 8 * n_nb
+    assert not valid[flat].any() and not want[1][flat].any()
+
+
+def _equal_to_ieee(got, a):
+    """K5's outputs `got` bit for bit against `pair_dense_ieee`, its
+    arithmetic in float32 on the CPU with the IEEE operations (NaNs by
+    position); returns the mirror's (depths, valid, slow)."""
+    depths, valid, slow = pair_dense_ieee(*[x.cpu() for x in a])
+    dg, vg = got[0].cpu(), got[1].cpu()
+    assert torch.equal(vg, valid)
+    nan = torch.isnan(depths)
+    assert torch.equal(torch.isnan(dg), nan)
+    assert torch.equal(dg[~nan].view(torch.int32),
+                       depths[~nan].view(torch.int32))
+    return depths, valid, slow
+
+
+def test_pair_dense_outside_fast_domain(dev):
+    """Pairs whose reciprocals or roots meet operands beyond FastRnOps'
+    range (2^126 and more, or NaN) are evaluated again with the IEEE
+    operations.  Far segments (their values overflow): the gates agree
+    with the twin and with K1, every depth of a pair near the origin is
+    the one K5 gives without them, and every depth and valid bit equals
+    the IEEE evaluation's.  A fundamental matrix scaled by a power of two
+    (the same epipolar lines): every output equals the IEEE evaluation's,
+    also on pair (14, 64) of its neighbor, whose transfer's reciprocal is
+    a subnormal that the fast path flushes to zero, so that without the
+    IEEE evaluation its first depth would come from the transfer point
+    (0, 0) in place of (2, 1/4)."""
+    a, _, _ = stereo_views(3, far=True, dev=dev)
+    depths, valid = k1.pair_dense(*a)
+    want = k1.pair_dense_plain(*a)
+    _check_dense((depths, valid), want)
+    assert torch.equal(k1.pair_valid_cuda(*a), valid)
+    assert not valid[:, 10:14].any() and not valid[:, :, 60:64].any()
+    _, _, slow = _equal_to_ieee((depths, valid), a)
+    assert int(slow.sum()) > 100
+    near, _, _ = stereo_views(3, dev=dev)
+    d0, v0 = k1.pair_dense(*near)
+    keep = torch.ones(valid.shape[1:], dtype=torch.bool, device=dev)
+    keep[10:14] = False
+    keep[:, 60:64] = False
+    assert torch.equal(valid[:, keep], v0[:, keep])
+    assert torch.equal(depths[:, :, keep].view(torch.int32),
+                       d0[:, :, keep].view(torch.int32))
+
+    a, _, _ = stereo_views(3, big_f=True, dev=dev)
+    got = k1.pair_dense(*a)
+    assert torch.equal(k1.pair_valid_cuda(*a), got[1])
+    d, _, slow = _equal_to_ieee(got, a)
+    assert bool(slow[-1, 14, 64]) and 0.0 < float(d[0, -1, 14, 64]) < 1e3
+
+
+def test_rn_ops_equal_ieee_on_every_float(dev):
+    """FastRnOps (csrc/pair_math.cuh) against the IEEE round-to-nearest
+    reciprocal and 1 / sqrt on every float of its ranges
+    (2^-126 <= |x| < 2^126; 2^-100 <= x < 2^126): bit-equal, and never
+    marked slow there."""
+    from line3d_tpu_torch.native import cuda
+    counts = torch.zeros(4, dtype=torch.int64, device=dev)
+    with cuda.on_device(counts):
+        cuda.check(cuda.lib().l3d_rn_ops_check(counts.data_ptr(),
+                                               cuda.stream_of(counts)),
+                   "l3d_rn_ops_check")
+    n_rcp, bad_rcp, n_isq, bad_isq = counts.tolist()
+    assert n_rcp == 2 * 252 * 2 ** 23 and bad_rcp == 0
+    assert n_isq == 226 * 2 ** 23 and bad_isq == 0
 
 
 def test_fma_peak_kernel(dev):

@@ -11,7 +11,8 @@ import pytest
 from line3d_tpu.match import pairwise as jp, pairwise_pallas as jpp
 from line3d_tpu_torch.match import pairwise as tp, pairwise_cuda
 from synthetic import make_scene
-from torch_port_helpers import N, T, facade_pair
+from torch_port_helpers import N, T, facade_pair, pair_dense_ieee, \
+    stereo_views
 
 
 @pytest.mark.parametrize("S,St", [(128, 256), (384, 384)])
@@ -178,3 +179,46 @@ def test_pair_dense_dispatch_cpu_uses_plain_twin():
     d_t, _ = tp.match_pair_dense(*a)
     for k in range(4):
         np.testing.assert_array_equal(N(depths)[k, 0], N(d_t[k]))
+
+
+@pytest.mark.parametrize("case", [(1, 3, 384, 384), (4, 1, 384, 128)])
+def test_pair_dense_ieee_matches_reference(case):
+    """pair_dense_ieee (tests/torch_port_helpers.py: K5's arithmetic in
+    float32 with the IEEE operations, which the `cuda` tests hold K5 to
+    bit for bit) against match_pair_dense_pallas in interpret mode, which
+    also multiplies by reciprocals: gate disagreement < 1e-3, depths rtol
+    1e-3 / atol 1e-4 on the pairs valid in both; no operand of the fast
+    reciprocals reaches 2^126."""
+    args = _house_case(*case)
+    ja = [jnp.asarray(a) for a in args]
+    ta = [T(a) for a in args]
+    depths, valid, slow = pair_dense_ieee(
+        ta[0], ta[2], ta[1][None], ta[3][None], ta[4][None], ta[5],
+        ta[6][None], ta[7], ta[8][None])
+    assert not slow.any()
+    depths, valid = N(depths)[:, 0], N(valid)[0]
+    ref = jpp.match_pair_dense_pallas(*ja, block_s=128, block_t=128,
+                                      interpret=True)
+    d_r, v_r = [N(d) for d in ref[0]], N(ref[1])
+    both = valid & v_r
+    assert both.sum() > 20
+    assert (valid != v_r).mean() < 1e-3
+    for k in range(4):
+        np.testing.assert_allclose(depths[k][both], d_r[k][both],
+                                   rtol=1e-3, atol=1e-4)
+
+
+@pytest.mark.parametrize("n_nb,Ss,St", [(1, 90, 150), (3, 70, 257)])
+def test_pair_dense_ieee_matches_twin(n_nb, Ss, St):
+    """pair_dense_ieee against K5's twin on the stereo views of the `cuda`
+    edge-case tests (a masked source, zero-length segments, transfers with
+    iz = 0): valid planes equal, depths rtol 1e-3 / atol 1e-4 on the valid
+    pairs."""
+    a, _, _ = stereo_views(n_nb, Ss, St)
+    depths, valid, slow = pair_dense_ieee(*a)
+    d_t, v_t = pairwise_cuda.pair_dense_plain(*a)
+    assert not slow.any() and int(v_t.sum()) > 100
+    np.testing.assert_array_equal(N(valid), N(v_t))
+    for k in range(4):
+        np.testing.assert_allclose(N(depths[k])[N(valid)],
+                                   N(d_t[k])[N(v_t)], rtol=1e-3, atol=1e-4)

@@ -141,3 +141,221 @@ def relabel(labels):
     rank = np.empty(len(first), np.int64)
     rank[np.argsort(first)] = np.arange(len(first))
     return rank[inv.reshape(-1)]
+
+
+def stereo_views(n_nb, Ss=90, St=150, seed=5, far=False, big_f=False,
+                 dev="cpu"):
+    """A source view and n_nb neighbors with R = I and one K, displaced
+    along x, so every epipolar line is horizontal: F's first row is zero,
+    and a horizontal segment's transfer into a horizontal segment fails
+    with iz = 0 exactly.  60 segments of a seeded 3D set (8 of them
+    horizontal) seen by every view, 40 random distractors in each
+    neighbor, zero padding to Ss and St; source segment 0 and target
+    segment 1 of every neighbor have zero length, and source segment 2
+    (a seen one) is masked.  With `far`, source segments 10-13 and the
+    distractors 60-63 lie 1e18 and 1e20 times farther from the origin, so
+    that some of their pairs' reciprocals and roots take operands beyond
+    2^126 or NaNs; their values overflow to infinities and NaNs, which
+    reach every depth as -1.  With `big_f`, the last neighbor's F is
+    scaled by 2^136 (the same epipolar lines), so that its transfers'
+    |iz| lie at or beyond 2^126, and its target 64 crosses the epipolar
+    line of source 14's first endpoint at (2, 1/4): there |iz| lies in
+    [2^126, 2^127) and ix stays finite, so the IEEE reciprocal is a
+    subnormal and the transfer point (2, 1/4), where the fast path, which
+    flushes it to zero, would give (0, 0).  Returns the K1/K5 arguments and the rows of the
+    horizontal source segments and columns of the horizontal target
+    segments."""
+    rng = np.random.default_rng(seed)
+    f, cx, cy, W, H = 800.0, 320.0, 240.0, 640.0, 480.0
+    n3 = 60
+    p = np.stack([rng.uniform(-1.5, 1.5, n3), rng.uniform(-1.0, 1.0, n3),
+                  rng.uniform(4.0, 8.0, n3)], 1)
+    d = rng.normal(size=(n3, 3)) * 0.6
+    d[:8, 1:] = 0.0
+    ends = np.stack([p, p + d], 1)                      # [n3, 2, 3]
+
+    def project(b):
+        x, y, z = ends[..., 0] - b, ends[..., 1], ends[..., 2]
+        return np.stack([f * x / z + cx, f * y / z + cy], -1).reshape(n3, 4)
+
+    base = 0.3 * np.arange(n_nb + 1)
+    src = np.zeros((Ss, 4))
+    src[:n3] = project(base[0])
+    src[0, 2:] = src[0, :2]
+    mask_src = np.zeros(Ss, bool)
+    mask_src[:n3] = True
+    mask_src[2] = False
+    segs_nb = np.zeros((n_nb, St, 4))
+    mask_nb = np.zeros((n_nb, St), bool)
+    order = [rng.permutation(n3) for _ in range(n_nb)]
+    for n in range(n_nb):
+        segs_nb[n, :n3] = project(base[n + 1])[order[n]]
+        segs_nb[n, n3:n3 + 40] = rng.uniform(0, 1, (40, 4)) * [W, H, W, H]
+        segs_nb[n, 1, 2:] = segs_nb[n, 1, :2]
+        mask_nb[n, :n3 + 40] = True
+        if far:
+            segs_nb[n, n3:n3 + 4] *= [[1e18], [1e18], [1e20], [1e20]]
+    if far:
+        src[10:14] *= [[1e18], [1e18], [1e20], [1e20]]
+    Kinv = np.linalg.inv(np.array([[f, 0, cx], [0, f, cy], [0, 0, 1.0]]))
+    C_nb = np.stack([base[1:], np.zeros(n_nb), np.zeros(n_nb)], 1)
+    F = np.stack([Kinv.T @ np.array([[0, 0, 0], [0, 0, b], [0, -b, 0]])
+                  @ Kinv for b in base[1:]])
+    assert not F[:, 0].any()
+    if big_f:
+        # c = b / f 2^k in [2^124, 2^125): the epipolar line of (x, y) is
+        # (0, c, -c y), and target 64 (la = -4, lb = 10, lc = 5.5) meets
+        # y = 1/4 at (2, 1/4) with iz = -4c, ix = -8c, iy = -c, every
+        # product below 2^128
+        k = int(np.ceil(124 - np.log2(base[-1] / f)))
+        F[-1] = np.ldexp(F[-1].astype(np.float32), k)
+        src[14] = [100.0, 0.25, -100.0, -3.0]
+        segs_nb[-1, 64] = [-3.0, -1.75, 7.0, 2.25]
+    t = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=dev)  # noqa
+    args = (t(src), torch.as_tensor(mask_src, device=dev), t(segs_nb),
+            torch.as_tensor(mask_nb, device=dev), t(F), t(Kinv),
+            t(np.repeat(Kinv[None], n_nb, 0)), t(np.zeros(3)), t(C_nb))
+    flat_s = args[0][:, 1] == args[0][:, 3]
+    flat_t = args[2][:, :, 1] == args[2][:, :, 3]
+    return args, flat_s, flat_t
+
+
+def pair_dense_ieee(segs_src, mask_src, segs_nb, mask_nb, F_nb, RtKinv_src,
+                    RtKinv_nb, C_src, C_nb, lower=0.10, upper=0.30):
+    """K5's function written out again in float32 PyTorch, expression for
+    expression and in the order of `csrc/pair_math.cuh` (its `IeeeOps`:
+    1 / x and 1 / sqrt(x) as IEEE operations, every product and sum
+    rounded on its own, as under -fmad=false), independently of the
+    port's plain twin, which divides where the kernel multiplies by a
+    reciprocal.  Returns (depths [4, N, Ss, St], valid [N, Ss, St], slow
+    [N, Ss, St]): `slow` marks the pairs for which `FastRnOps` meets an
+    operand at or beyond 2^126 or a NaN, and so the kernel's IEEE
+    evaluation.  The square root is taken in float64 and rounded, the
+    correctly rounded float32 root (`core.geometry.sqrt`)."""
+    f32 = torch.float32
+    one, zero = torch.ones((), dtype=f32), torch.zeros((), dtype=f32)
+    eps = torch.tensor(1e-12, dtype=f32)
+    eps2 = eps * eps
+    big = torch.tensor(2.0 ** 126, dtype=f32)
+    N = segs_nb.shape[0]
+    # per neighbor parameters, [N, 1, 1]
+    col = lambda x: x.to(f32).reshape(N, 1, 1)  # noqa: E731
+    F = [col(F_nb.reshape(N, 9)[:, k]) for k in range(9)]
+    Ms = [col(RtKinv_src.reshape(1, 9).expand(N, 9)[:, k]) for k in range(9)]
+    Mt = [col(RtKinv_nb.reshape(N, 9)[:, k]) for k in range(9)]
+    w0 = [col(C_src.reshape(1, 3).expand(N, 3)[:, k] - C_nb[:, k])
+          for k in range(3)]
+    lo, hi = torch.tensor(lower, dtype=f32), torch.tensor(upper, dtype=f32)
+    lo2, hi2 = lo * lo, hi * hi
+    slow = [torch.zeros((), dtype=torch.bool)]
+
+    def mat3(M, x, y, t=False):
+        i = (0, 3, 6, 1, 4, 7, 2, 5, 8) if t else range(9)
+        m = [M[k] for k in i]
+        return (m[0] * x + m[1] * y + m[2], m[3] * x + m[4] * y + m[5],
+                m[6] * x + m[7] * y + m[8])
+
+    def ray_n(M, x, y, fast=False):
+        rx, ry, rz = mat3(M, x, y)
+        q = torch.fmax(rx * rx + ry * ry + rz * rz, eps)
+        if fast:
+            slow[0] = slow[0] | ~(q < big)
+        inv = 1.0 / torch.sqrt(q.double()).to(f32)
+        return rx * inv, ry * inv, rz * inv
+
+    def rcp(x):
+        slow[0] = slow[0] | ~(x.abs() < big)
+        return 1.0 / x
+
+    def stage(seg, mask, M, t):
+        x1, y1, x2, y2 = (seg[..., k].to(f32) for k in range(4))
+        e1 = mat3(F, x1, y1, t)
+        e2 = mat3(F, x2, y2, t)
+        return dict(x1=x1, y1=y1, x2=x2, y2=y2, la=y1 - y2, lb=x2 - x1,
+                    lc=x1 * y2 - y1 * x2, e1=e1, e2=e2,
+                    r1=ray_n(M, x1, y1), r2=ray_n(M, x2, y2),
+                    mask=torch.where(mask, one, zero))
+
+    s = stage(segs_src.reshape(1, -1, 1, 4), mask_src.reshape(1, -1, 1), Ms,
+              False)
+    t = stage(segs_nb.reshape(N, 1, -1, 4), mask_nb.reshape(N, 1, -1), Mt,
+              True)
+
+    def intersect(la, lb, lc, m):
+        ma, mb, mc = m
+        ix = lb * mc - lc * mb
+        iy = lc * ma - la * mc
+        iz = la * mb - lb * ma
+        ok = iz.abs() > eps
+        inv = rcp(torch.where(ok, iz, one))
+        return torch.where(ok, ix * inv, zero), torch.where(ok, iy * inv,
+                                                            zero), ok
+
+    def d2(ux, uy, vx, vy):
+        return (ux - vx) * (ux - vx) + (uy - vy) * (uy - vy)
+
+    def on_seg(px, py, qx, qy, rx, ry):
+        return (px - rx) * (qx - rx) + (py - ry) * (qy - ry) < eps
+
+    def overlap(ax, ay, bx, by, cx, cy, dx, dy):
+        len2_ab, len2_cd = d2(ax, ay, bx, by), d2(cx, cy, dx, dy)
+        c_in, d_in = on_seg(ax, ay, bx, by, cx, cy), on_seg(ax, ay, bx, by,
+                                                            dx, dy)
+        a_in, b_in = on_seg(cx, cy, dx, dy, ax, ay), on_seg(cx, cy, dx, dy,
+                                                            bx, by)
+        l31, l32 = d2(bx, by, dx, dy), d2(ax, ay, dx, dy)
+        b3 = a_in & (l31 > eps2)
+        n3 = torch.where(b3, d2(cx, cy, ax, ay),
+                         torch.where(l32 > eps2, d2(cx, cy, bx, by), zero))
+        e3 = torch.where(b3, torch.fmax(l31, eps),
+                         torch.where(l32 > eps2, torch.fmax(l32, eps), one))
+        l41, l42 = d2(ax, ay, cx, cy), d2(bx, by, cx, cy)
+        b4 = b_in & (l41 > eps2)
+        n4 = torch.where(b4, d2(dx, dy, bx, by),
+                         torch.where(l42 > eps2, d2(dx, dy, ax, ay), zero))
+        e4 = torch.where(b4, torch.fmax(l41, eps),
+                         torch.where(l42 > eps2, torch.fmax(l42, eps), one))
+        num = torch.where(c_in & d_in, len2_cd, torch.where(
+            a_in & b_in, len2_ab, torch.where(
+                c_in, n3, torch.where(d_in, n4, zero))))
+        den = torch.where(c_in & d_in, torch.fmax(len2_ab, eps), torch.where(
+            a_in & b_in, torch.fmax(len2_cd, eps), torch.where(
+                c_in, e3, torch.where(d_in, e4, one))))
+        return torch.where((len2_ab < 1.0) | (len2_cd < 1.0), zero, num), den
+
+    # cheap gates
+    a1x, a1y, ok1 = intersect(t["la"], t["lb"], t["lc"], s["e1"])
+    a2x, a2y, ok2 = intersect(t["la"], t["lb"], t["lc"], s["e2"])
+    b1x, b1y, ok3 = intersect(s["la"], s["lb"], s["lc"], t["e1"])
+    b2x, b2y, ok4 = intersect(s["la"], s["lb"], s["lc"], t["e2"])
+    n1, e1 = overlap(s["x1"], s["y1"], s["x2"], s["y2"], b1x, b1y, b2x, b2y)
+    n2, e2 = overlap(t["x1"], t["y1"], t["x2"], t["y2"], a1x, a1y, a2x, a2y)
+    ov_ok = (n1 > lo2 * e1) & (n2 > lo2 * e2) & ((n1 > hi2 * e1) |
+                                                 (n2 > hi2 * e2))
+    cheap = ok1 & ok2 & ok3 & ok4 & ov_ok & (s["mask"] > 0.5) & \
+        (t["mask"] > 0.5)
+
+    # the four two-ray depths
+    def dot(u, v):
+        return u[0] * v[0] + u[1] * v[1] + u[2] * v[2]
+
+    def two_ray(r1, r2, want_first):
+        a, b, c = dot(r1, r1), dot(r1, r2), dot(r2, r2)
+        d, e = dot(r1, w0), dot(r2, w0)
+        denom = a * c - b * b
+        num = b * e - c * d if want_first else a * e - b * d
+        return num, denom, denom.abs() > eps
+
+    terms = [two_ray(s["r1"], ray_n(Mt, a1x, a1y, True), True),
+             two_ray(s["r2"], ray_n(Mt, a2x, a2y, True), True),
+             two_ray(ray_n(Ms, b1x, b1y, True), t["r1"], False),
+             two_ray(ray_n(Ms, b2x, b2y, True), t["r2"], False)]
+    depths, valid = [], cheap
+    for num, den, ok in terms:
+        inv = rcp(torch.where(ok, den, one))
+        d = torch.where(ok, num * inv, -one)
+        depths.append(d)
+        valid = valid & (d > 0) & ok
+    shape = valid.shape
+    return (torch.stack([d.expand(shape) for d in depths]), valid,
+            slow[0].expand(shape))
