@@ -111,6 +111,15 @@ exits non-zero):
                10's byte for byte, (d)'s refined poses phase 10's bit for
                bit, and each rank must have built its dot and its
                per-cluster tensors for its own share only.
+ 15. scale     the facade at 256 views (S = 1408), exact: (a) one cold and
+               one warm run in this process, its launches counted (K1 and
+               the scoring kernel once a view, K4 once), the model exact
+               (no match overflow left, no collinear pair dropped after
+               the fallback) with lines; (b) K1, the scoring kernel and K4
+               against their twins at that run's shapes, as in phase cli:
+               K1 and the scoring kernel at views 0, 128 and 255, K4 on
+               all 256 views; (c) the same model over max(2, cards) ranks,
+               one run each, every rank's TXT (a)'s byte for byte.
 
 Each path's kernel launch counts are set to 0 just before it is driven and
 read just after.  The line before last is the card as `nvidia-smi` reports
@@ -1299,13 +1308,14 @@ CLI_SCORE_OUTSIDE_MAX = 2e-3      # fraction of scored slots
 CLI_SCORE_FAR_MAX = 1e-5          # fraction beyond 3x the tolerance
 
 
-def _check_path_kernels(l3d, tag):
+def _check_path_kernels(l3d, tag, views=None):
     """The kernels of a finished Line3D run against their plain twins on
-    the card, at the shapes that run gave them: for the first view of each
-    match-slot width the run used and for the last view, K1's planes on the
-    view's N neighbors (and the probe counters the run reduced from them)
-    and the scoring kernel on the view's exact match table; then K4 on all
-    the scene's views.  K1 and K4 are held to phase `kernels`' tolerances.
+    the card, at the shapes that run gave them: for `views`, by default
+    the first view of each match-slot width the run used and the last
+    view, K1's planes on the view's N neighbors (and the probe counters
+    the run reduced from them) and the scoring kernel on the view's exact
+    match table; then K4 on all the scene's views.  K1 and K4 are held to
+    phase `kernels`' tolerances.
     On the first of those views the device selection is held against the
     host selection on the same card tables (_hold_selection).
     The scoring kernel is held to its float32 twin and, as the arbiter of
@@ -1320,11 +1330,17 @@ def _check_path_kernels(l3d, tag):
     cfg, scene = l3d.config, l3d.scene
     ctx = engine.ViewContext(scene, l3d.cameras, cfg)
     S = scene.max_segments
-    picked = {}
-    for vm in l3d.matches:
-        picked.setdefault(vm.m_total, vm)
-    views = {vm.view: vm for vm in picked.values()}
-    views[l3d.matches[-1].view] = l3d.matches[-1]
+    if views is None:
+        picked = {}
+        for vm in l3d.matches:
+            picked.setdefault(vm.m_total, vm)
+        views = {vm.view: vm for vm in picked.values()}
+        views[l3d.matches[-1].view] = l3d.matches[-1]
+    else:
+        want = set(views)
+        views = {vm.view: vm for vm in l3d.matches if vm.view in want}
+        require(set(views) == want, f"{tag}: views {sorted(want)} were "
+                "not all matched")
     out = {}
     for v, vm in sorted(views.items()):
         M = vm.m_total
@@ -2142,7 +2158,8 @@ def _compare_best(bg, bc, rg, rc, flip_rows):
 # phase multiproc: the facade over max(2, cards) ranks over gloo on
 # 127.0.0.1, rank r on cuda:{r % cards} (two ranks share the card of a
 # one-card machine).  The script starts itself once per rank with this
-# variable set to "port,rank,ranks,outdir"; a rank that fails, hangs past
+# variable set to "kind,port,rank,ranks,outdir" (kind: the phase,
+# multiproc or scale); a rank that fails, hangs past
 # MULTIPROC_TIMEOUT_S or writes another model fails the phase.
 MULTIPROC_ENV = "L3D_CHIP_SMOKE_RANK"
 MULTIPROC_MIN_RANKS = 2
@@ -2300,6 +2317,53 @@ def multiproc_rank(spec: str) -> int:
     return 0
 
 
+def _run_ranks(kind: str, n_ranks: int, outdir: str) -> float:
+    """Start this script once per rank of phase `kind` (MULTIPROC_ENV set to
+    "kind,port,rank,ranks,outdir", each rank's output in outdir/log_r.txt),
+    wait for all (MULTIPROC_TIMEOUT_S in all), kill what is left and print
+    the ranks' `[kind` lines (every line of a rank that failed); fails
+    unless every rank exited 0.  Returns the wall seconds."""
+    import socket
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    procs, logs = [], []
+    for r in range(n_ranks):
+        env = dict(os.environ)
+        env[MULTIPROC_ENV] = f"{kind},{port},{r},{n_ranks},{outdir}"
+        logs.append(os.path.join(outdir, f"log_{r}.txt"))
+        with open(logs[-1], "w") as f:
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__)], cwd=here,
+                env=env, stdout=f, stderr=subprocess.STDOUT))
+    hung = False
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, t0 + MULTIPROC_TIMEOUT_S
+                               - time.perf_counter()))
+    except subprocess.TimeoutExpired:
+        hung = True
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    for r, (p, path) in enumerate(zip(procs, logs)):
+        with open(path) as f:
+            for ln in f.read().splitlines():
+                if ln.startswith(f"[{kind}") or p.returncode:
+                    log(f"[{kind}]   rank {r}: {ln}")
+    require(not hung, f"{kind}: a rank hung past {MULTIPROC_TIMEOUT_S} s")
+    for r, p in enumerate(procs):
+        require(p.returncode == 0, f"{kind}: rank {r} failed "
+                f"({p.returncode})")
+    return wall
+
+
 def phase_multiproc(card, fa, fd, fb):
     """The facade over max(MULTIPROC_MIN_RANKS, cards) processes (phase 14
     of the module docstring): each rank's model must be phase facade's TXT
@@ -2307,52 +2371,14 @@ def phase_multiproc(card, fa, fd, fb):
     rows; with the cluster stage split, phase facaded's (c) and phase
     facadeba's (d) TXT, (d)'s poses phase facadeba's, and each rank's
     shares its own."""
-    import socket
     import torch
     from line3d_tpu_torch import L3DConfig
     from line3d_tpu_torch.match import collinearity
     from line3d_tpu_torch.parallel import multihost
     from line3d_tpu_torch.utils.demo import make_facade_scene
-    s = socket.socket()
-    s.bind(("127.0.0.1", 0))
-    port = s.getsockname()[1]
-    s.close()
-    here = os.path.dirname(os.path.abspath(__file__))
     n_ranks = max(MULTIPROC_MIN_RANKS, torch.cuda.device_count())
     with tempfile.TemporaryDirectory() as outdir:
-        t0 = time.perf_counter()
-        procs, logs = [], []
-        for r in range(n_ranks):
-            env = dict(os.environ)
-            env[MULTIPROC_ENV] = f"{port},{r},{n_ranks},{outdir}"
-            logs.append(os.path.join(outdir, f"log_{r}.txt"))
-            with open(logs[-1], "w") as f:
-                procs.append(subprocess.Popen(
-                    [sys.executable, os.path.abspath(__file__)], cwd=here,
-                    env=env, stdout=f, stderr=subprocess.STDOUT))
-        hung = False
-        try:
-            for p in procs:
-                p.wait(timeout=max(1.0, t0 + MULTIPROC_TIMEOUT_S
-                                   - time.perf_counter()))
-        except subprocess.TimeoutExpired:
-            hung = True
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                    p.wait()
-        wall = time.perf_counter() - t0
-        for r, (p, path) in enumerate(zip(procs, logs)):
-            with open(path) as f:
-                for ln in f.read().splitlines():
-                    if ln.startswith("[multiproc") or p.returncode:
-                        log(f"[multiproc]   rank {r}: {ln}")
-        require(not hung, f"multiproc: a rank hung past "
-                f"{MULTIPROC_TIMEOUT_S} s")
-        for r, p in enumerate(procs):
-            require(p.returncode == 0, f"multiproc: rank {r} failed "
-                    f"({p.returncode})")
+        wall = _run_ranks("multiproc", n_ranks, outdir)
         ranks = []
         for r in range(n_ranks):
             with open(os.path.join(outdir, f"rank_{r}.json")) as f:
@@ -2440,6 +2466,143 @@ def phase_multiproc(card, fa, fd, fb):
     return dict(wall=wall, ranks=ranks)
 
 
+# phase scale: the facade at SCALE_VIEWS views (S = SCALE_S), exact; the
+# kernels held at SCALE_HELD_VIEWS' shapes; the same model over
+# max(MULTIPROC_MIN_RANKS, cards) ranks
+SCALE_VIEWS, SCALE_S = 256, 1408
+SCALE_HELD_VIEWS = (0, 128, 255)
+
+
+def _scale_run(cfg, scene, cams, dev=None):
+    """(Line3D, seconds) of one exact model of the scale scene on the card,
+    the run ending in a synchronize."""
+    import torch
+    from line3d_tpu_torch import Line3D
+    l3d = feed(Line3D(config=cfg), scene, cams)
+    t0 = time.perf_counter()
+    l3d.compute_3d_model()
+    torch.cuda.synchronize(dev)
+    return l3d, time.perf_counter() - t0
+
+
+def _scale_exact(st, l3d, tag):
+    """The exactness fields of a scale run; fails unless the model is
+    exact (no match overflow left, no collinear pair dropped after the
+    fallback) and has lines."""
+    ex = {k: st[k] for k in ("match_overflow", "views_rematched_uncapped",
+                             "probe_m_total", "collinearity_overflow",
+                             "views_recollin_exact")}
+    ex["collin_dropped_left"] = int(l3d.scene.collin.dropped_total)
+    require(st["match_overflow"] == 0 or st["views_rematched_uncapped"] > 0,
+            f"{tag}: match overflow left")
+    require(ex["collin_dropped_left"] == 0 and
+            (st["collinearity_overflow"] == 0) ==
+            (st["views_recollin_exact"] == 0),
+            f"{tag}: collinear pairs dropped and not re-derived")
+    require(st["num_lines"] > 0, f"{tag}: no lines")
+    return ex
+
+
+def scale_rank(spec: str) -> int:
+    """One rank of phase scale: one exact model of the scale scene on this
+    rank's card; writes its TXT and its figures to the output directory."""
+    import torch
+    import torch.distributed as dist
+    from line3d_tpu_torch import L3DConfig
+    from line3d_tpu_torch.parallel import multihost
+    from line3d_tpu_torch.utils.demo import make_facade_scene
+    port, rank, nproc, outdir = spec.split(",")
+    rank, nproc = int(rank), int(nproc)
+    require(multihost.initialize(f"127.0.0.1:{port}", nproc, rank,
+                                 timeout_s=MULTIPROC_TIMEOUT_S),
+            "scale: no process group")
+    tag = f"scale rank {rank}"
+    cfg = L3DConfig()
+    scene, cams = make_facade_scene(num_views=SCALE_VIEWS, config=cfg)
+    lo, hi = multihost.my_view_range(SCALE_VIEWS, rank, nproc)
+    (l3d, secs), counts = _counted(
+        lambda: _scale_run(cfg, scene, cams, scene.device), tag)
+    st = l3d.stats
+    ex = _scale_exact(st, l3d, tag)
+    require(counts["pair_valid"] == counts["score"] == hi - lo ==
+            st["views_local"], f"{tag}: K1 or the scoring kernel ran for "
+            f"other views than its own {hi - lo}")
+    out = dict(rank=rank, lo=lo, hi=hi, device=str(scene.device),
+               seconds=secs, counts=counts, lines=st["num_lines"],
+               gathered_by_stage=st["gathered_by_stage"], **ex,
+               **{k: st[k] for k in ("t_collin", "t_match", "t_affinity",
+                                     "t_fh", "t_fit", "t_cluster")})
+    log(f"[{tag}] views [{lo}, {hi}) on {scene.device}: one run (cold) "
+        f"{secs:.3f} s (t_collin {st['t_collin']:.3f}, t_match "
+        f"{st['t_match']:.3f}, t_cluster {st['t_cluster']:.3f} s), "
+        f"{st['num_lines']} lines; received by stage "
+        f"{st['gathered_by_stage']}")
+    with open(os.path.join(outdir, f"scale_{rank}.txt"), "w") as f:
+        f.write(_txt_text(l3d))
+    with open(os.path.join(outdir, f"rank_{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def phase_scale(card):
+    """The facade at SCALE_VIEWS views (phase 15 of the module docstring):
+    (a) one cold and one counted warm exact run in this process, (b) K1,
+    the scoring kernel and K4 against their twins at that run's shapes,
+    (c) the same model over max(MULTIPROC_MIN_RANKS, cards) ranks, every
+    rank's TXT (a)'s byte for byte."""
+    import torch
+    from line3d_tpu_torch import L3DConfig
+    from line3d_tpu_torch.utils.demo import make_facade_scene
+    cfg = L3DConfig()
+    t0 = time.perf_counter()
+    scene, cams = make_facade_scene(num_views=SCALE_VIEWS, config=cfg)
+    V, S = scene.num_views, scene.max_segments
+    require(S == SCALE_S, f"scale: S = {S}, not {SCALE_S}")
+    log(f"[scale] the facade at {V} views, S = {S}, built in "
+        f"{time.perf_counter() - t0:.2f} s")
+    torch.cuda.reset_peak_memory_stats()
+    l3d, cold = _scale_run(cfg, scene, cams)
+    (l3d, warm), counts = _counted(lambda: _scale_run(cfg, scene, cams),
+                                   "scale")
+    st = l3d.stats
+    ex = _scale_exact(st, l3d, "scale")
+    require(counts["pair_valid"] == counts["score"] == V,
+            f"scale: K1 or the scoring kernel did not run once a view")
+    mt, mc = np.unique(st["m_total"], return_counts=True)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[scale] cold {cold:.3f} s, warm {warm:.3f} s = {V / warm:.2f} "
+        f"images/s on {card} (t_collin {st['t_collin']:.3f}, t_match "
+        f"{st['t_match']:.3f}, t_affinity {st['t_affinity']:.3f}, t_fh "
+        f"{st['t_fh']:.3f}, t_fit {st['t_fit']:.3f} s); {st['num_lines']} "
+        f"lines, {st['num_edges']} edges; m_total per view "
+        f"{dict(zip(mt.tolist(), mc.tolist()))}; exactness {ex}; peak "
+        f"device memory {peak} B")
+    txt = _txt_text(l3d)
+    t1 = time.perf_counter()
+    held = _check_path_kernels(l3d, "scale", views=SCALE_HELD_VIEWS)
+    t_held = time.perf_counter() - t1
+    n_ranks = max(MULTIPROC_MIN_RANKS, torch.cuda.device_count())
+    with tempfile.TemporaryDirectory() as outdir:
+        wall = _run_ranks("scale", n_ranks, outdir)
+        ranks = []
+        for r in range(n_ranks):
+            with open(os.path.join(outdir, f"rank_{r}.json")) as f:
+                ranks.append(json.load(f))
+            with open(os.path.join(outdir, f"scale_{r}.txt")) as f:
+                require(f.read() == txt, f"scale: rank {r}'s model differs "
+                        f"from the one-process model")
+    log(f"[scale] kernels held at the run's shapes in {t_held:.1f} s; "
+        f"{n_ranks} ranks in {wall:.1f} s wall: every rank's TXT equal the "
+        f"one-process TXT byte for byte; per rank (views, s, t_match, "
+        f"t_cluster, launches): "
+        + "; ".join(f"{r['device']} [{r['lo']}, {r['hi']}) "
+                    f"{r['seconds']:.3f} {r['t_match']:.3f} "
+                    f"{r['t_cluster']:.3f} {r['counts']}" for r in ranks))
+    return dict(cold=cold, warm=warm, counts=counts, exact=ex, held=held,
+                peak=peak, lines=st["num_lines"], ranks=ranks, wall=wall)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2449,7 +2612,8 @@ def main() -> int:
     import line3d_tpu_torch  # noqa: F401  (fails outside a checkout)
     require("jax" not in sys.modules, "JAX was imported")
     if os.environ.get(MULTIPROC_ENV):
-        return multiproc_rank(os.environ[MULTIPROC_ENV])
+        kind, spec = os.environ[MULTIPROC_ENV].split(",", 1)
+        return dict(multiproc=multiproc_rank, scale=scale_rank)[kind](spec)
 
     seconds = {}
 
@@ -2474,6 +2638,7 @@ def main() -> int:
     sp = timed("stress", phase_stress, card)
     cl = timed("cli", phase_cli, card)
     mp = timed("multiproc", phase_multiproc, card, fa, fd, fb)
+    sc = timed("scale", phase_scale, card)
     require("jax" not in sys.modules and "line3d_tpu" not in sys.modules,
             "JAX or line3d_tpu was imported")
     d2h = (fa["copies"] or {}).get("DtoH", {})
@@ -2490,19 +2655,24 @@ def main() -> int:
     # for K5 and K6); `launches_per_facade_run` is the warm facade run's
     # count for every kernel, `launches_capped` the counts of the capped
     # phase's runs (b) and (c), `launches_cli` those of the CLI's first
-    # run, `held_at_cli_shapes` that run's comparison with the twins.  No
+    # run, `held_at_cli_shapes` that run's comparison with the twins,
+    # `launches_scale` the counts of phase scale's warm run (and of each of
+    # its ranks' run), `held_at_scale_shapes` its comparison.  No
     # single PyTorch call computes any of these functions, so `library_ms`
     # is null throughout.
     cnt = fa["counts"]
 
-    views_cli = {k: d for k, d in cl["held"].items() if k.startswith("view")}
-    held_cli = dict(
-        pair_valid={k: dict(S=d["S"], disagree=d["k1_disagree"])
-                    for k, d in views_cli.items()},
-        score={k: {key: d[key] for key in d
-                   if key in ("S", "M") or key.startswith("score_")}
-               for k, d in views_cli.items()},
-        collin_pairs=cl["held"]["collin_pairs"])
+    def held_by_kernel(held):
+        views = {k: d for k, d in held.items() if k.startswith("view")}
+        return dict(
+            pair_valid={k: dict(S=d["S"], disagree=d["k1_disagree"])
+                        for k, d in views.items()},
+            score={k: {key: d[key] for key in d
+                       if key in ("S", "M") or key.startswith("score_")}
+                   for k, d in views.items()},
+            collin_pairs=held["collin_pairs"])
+    held_cli, held_scale = held_by_kernel(cl["held"]), \
+        held_by_kernel(sc["held"])
 
     def also(key):
         return dict(launches_capped=[cp["b"]["counts"][key],
@@ -2511,13 +2681,17 @@ def main() -> int:
                     launches_cli=cl["counts"][key],
                     launches_reduced_facade=fa["reduced"]["counts"][key],
                     held_at_cli_shapes=held_cli[key],
+                    held_at_scale_shapes=held_scale[key],
                     **multiproc_launches(key))
 
     def multiproc_launches(key):
         return dict(launches_multiproc=[r["counts"][key]
                                         for r in mp["ranks"]],
                     launches_multiproc_capped=[r["counts_capped"][key]
-                                               for r in mp["ranks"]])
+                                               for r in mp["ranks"]],
+                    launches_scale=sc["counts"][key],
+                    launches_scale_ranks=[r["counts"][key]
+                                          for r in sc["ranks"]])
     kernels = [
         dict(name="pair_valid (K1)", route="cuda",
              source="line3d_tpu_torch/csrc/pair_valid.cu",
@@ -2548,6 +2722,7 @@ def main() -> int:
              replaces="line3d_tpu/match/pairwise_pallas.py:203",
              path="validate", launches=k5["launches"],
              launches_per_facade_run=cnt["pair_dense"], library_ms=None,
+             held_at_scale_shapes=None,
              **multiproc_launches("pair_dense"),
              **{key: k5[key] for key in ("max_abs_err", "ms", "plain_ms",
                                          "bound_ms", "bound_by")}),
@@ -2556,6 +2731,7 @@ def main() -> int:
              replaces="bench.py:398", path="peak",
              launches=k6["launches"],
              launches_per_facade_run=cnt["fma_peak"], library_ms=None,
+             held_at_scale_shapes=None,
              **multiproc_launches("fma_peak"),
              **{key: k6[key] for key in ("max_abs_err", "ms", "plain_ms",
                                          "bound_ms", "bound_by",
