@@ -50,8 +50,8 @@ exits non-zero):
                selection held to the host selection on the same card
                tables, and the host synchronisations of one view's step
                counted (at most three).  Then the reduced facade of
-               tests/test_torch_host.py (8 views, 960 x 720) on the card
-               (launches counted) and on the CPU (plain twins, host
+               tests/test_torch_host.py (facade6: 6 views, 960 x 720) on
+               the card (launches counted) and on the CPU (plain twins, host
                selection): each view's verified matches may differ on
                less than 1e-3 of them, each differing best-match pick
                must be a near-tie, lie in a row whose verified matches
@@ -120,6 +120,26 @@ exits non-zero):
                K1 and the scoring kernel at views 0, 128 and 255, K4 on
                all 256 views; (c) the same model over max(2, cards) ranks,
                one run each, every rank's TXT (a)'s byte for byte.
+ 16. scalefit  phases facaded's and facadeba's configurations on the
+               facade at 256 views: one cold and one counted warm run
+               each, the device diffusion run again bit-equal and (true
+               mode) held to the float64 host on the same graph, the
+               device refinement to the float64 host refinement on the
+               same clusters, the BA's rms and poses;
+               then max(2, cards) ranks, each rank's TXT of both and its
+               refined poses one process's byte for byte; then the
+               refinement alone at 173,000 clusters
+               (utils/refine_bench.py) against the float64 host on its
+               first 20,000.
+ 17. clutter   make_demo_scene(100, num_random_segments=2990) (S = 3072),
+               exact (every view at its exact capacity, K2) and capped
+               (uncapped_fallback=False: M = 256, K3, the overflow
+               counted), each counted, with K1, the scoring kernel and K4
+               held against their twins at views 0, 50 and 99 of each.
+ 18. cudatests the `cuda`-marked tests of tests/test_torch_kernels_cuda.py
+               on the card, in a process of their own (`python -m pytest
+               ... -m cuda --noconftest`): pytest must exit 0 and at least
+               35 must pass (36 on two cards or more).
 
 Each path's kernel launch counts are set to 0 just before it is driven and
 read just after.  The line before last is the card as `nvidia-smi` reports
@@ -859,10 +879,10 @@ def phase_peak(smi):
                 tflops=r["tflops"])
 
 
-def _hold_diffusion(calls, mode, where):
-    """The recorded device diffusion against the float64 host on the same
-    edge list: identical (i, j), weights within DIFF_RTOL / DIFF_ATOL; and
-    run once more on the card, bit-equal."""
+def _hold_diffusion(calls, mode, where, host=True):
+    """The recorded device diffusion run once more on the card, bit-equal;
+    and, with `host`, against the float64 host on the same edge list:
+    identical (i, j), weights within DIFF_RTOL / DIFF_ATOL."""
     from line3d_tpu_torch.cluster import diffusion as dh, \
         diffusion_device as dd
     host_fn, dev_fn = (dh.diffuse_reference, dd.diffuse_reference_device) \
@@ -875,6 +895,10 @@ def _hold_diffusion(calls, mode, where):
     again = dev_fn(ei, ej, ew, n, it, eps, **kw)
     require(np.array_equal(again[2], got[2]),
             f"{where}: device diffusion is not reproducible")
+    if not host:
+        log(f"[{where}] {mode} diffusion on the card: {len(ew)} entries, "
+            f"{n} nodes; a second run on the card bit-equal")
+        return
     t0 = time.perf_counter()
     want = host_fn(ei, ej, ew, n, it, eps)
     t_host = time.perf_counter() - t0
@@ -1023,6 +1047,55 @@ def _facade_runs(cfg, scene, cams, n_warm, tag, profile=False):
     return l3d, warm, counts, copies
 
 
+def _hold_refine(call, where):
+    """A recorded device refinement (args, kwargs, result) against the
+    float64 host refinement on the same clusters, by tests/test_refine.py's
+    criteria, the rms-before tolerance widened to the float32 residual
+    floor."""
+    import torch
+    from line3d_tpu_torch.fit import refine as rf
+    a, kw, got = call
+    require(kw["device"].type == "cuda", f"{where}: refine not on the card")
+    P0, d0, Pm, p1, p2, mask = a
+    t0 = time.perf_counter()
+    want = rf.refine_lines(P0, d0, Pm, p1, p2, mask,
+                           iterations=kw["iterations"])
+    t_host = time.perf_counter() - t0
+    Pd, dd_, rb_d, ra_d = got
+    Ph, dh, rb_h, ra_h = want
+    align = float(np.abs(np.sum(dd_ * dh, axis=1)).min())
+    perp = float(np.linalg.norm(np.cross(Pd - Ph, dh), axis=1).max())
+    # the facade's lines are exact projections (rms ~1e-4 px), below what
+    # a float32 residual can resolve at 1920 x 1440 with K ~ 1800: the
+    # float32 and float64 residuals of the same initial lines part by up
+    # to `floor` px, which bounds the two rms-before values' difference
+    # in place of test_refine.py's atol 1e-4
+    d_unit = d0 / np.linalg.norm(d0, axis=1, keepdims=True)
+    r64, _ = rf._residuals(P0, d_unit, Pm, p1, p2, mask)
+    f32 = lambda x: torch.as_tensor(np.asarray(x, np.float32),  # noqa
+                                    device=kw["device"])
+    r32, _ = rf.residuals_t(f32(P0), f32(d_unit), f32(Pm), f32(p1),
+                             f32(p2), torch.as_tensor(mask,
+                                                      device=kw["device"]))
+    floor = float(np.abs(r32.cpu().numpy() - r64).max())
+    rb_err = float(np.abs(rb_d - rb_h).max())
+    log(f"[{where}] device refine vs float64 host ({t_host:.2f} s): "
+        f"{len(P0)} lines, up to {Pm.shape[1]} members; median rms "
+        f"{np.median(rb_h):.6f} -> {np.median(ra_d):.6f} (host "
+        f"{np.median(ra_h):.6f}) px, rms-before diff {rb_err:.3e} (float32 "
+        f"residual floor {floor:.3e}) px, worst excess "
+        f"{float((ra_d - ra_h).max()):.3e} px, min alignment {align:.7f},"
+        f" max perpendicular offset {perp:.3e}")
+    require(bool((np.abs(rb_d - rb_h) <= 1e-4 * rb_h + max(1e-4, floor))
+                 .all()) and
+            np.median(ra_d) <= np.median(ra_h) * 1.1 + 1e-3 and
+            bool((ra_d <= ra_h + 0.05).all()) and align > 0.9999 and
+            perp < 5e-3, f"{where}: device refine differs from the host "
+            "(tests/test_refine.py criteria)")
+    return dict(clusters=len(P0), members=int(Pm.shape[1]), host_s=t_host,
+                rms_before_diff=rb_err, floor=floor)
+
+
 def phase_facade_diffusion_refine(card):
     """The facade with device diffusion and device refinement."""
     import torch
@@ -1041,43 +1114,7 @@ def phase_facade_diffusion_refine(card):
         f"{V / best_s:.2f} images/s on {card}; {l3d.stats['num_lines']} "
         f"lines, {l3d.stats['num_edges']} edges")
     _hold_diffusion(dcalls[-1:], "reference", "facaded")
-    a, kw, got = rcalls[-1]
-    require(kw["device"].type == "cuda", "facaded: refine not on the card")
-    P0, d0, Pm, p1, p2, mask = a
-    t0 = time.perf_counter()
-    want = rf.refine_lines(P0, d0, Pm, p1, p2, mask,
-                           iterations=kw["iterations"])
-    t_host = time.perf_counter() - t0
-    Pd, dd_, rb_d, ra_d = got
-    Ph, dh, rb_h, ra_h = want
-    align = float(np.abs(np.sum(dd_ * dh, axis=1)).min())
-    perp = float(np.linalg.norm(np.cross(Pd - Ph, dh), axis=1).max())
-    # the facade's lines are exact projections (rms ~1e-4 px), below what
-    # a float32 residual can resolve at 1920 x 1440 with K ~ 1800: the
-    # float32 and float64 residuals of the same initial lines part by up
-    # to `floor` px, which bounds the two rms-before values' difference
-    # in place of test_refine.py's atol 1e-4
-    d_unit = d0 / np.linalg.norm(d0, axis=1, keepdims=True)
-    r64, _ = rf._residuals(P0, d_unit, Pm, p1, p2, mask)
-    f32 = lambda x: torch.as_tensor(np.asarray(x, np.float32),  # noqa
-                                    device="cuda")
-    r32, _ = rf.residuals_t(f32(P0), f32(d_unit), f32(Pm), f32(p1),
-                             f32(p2), torch.as_tensor(mask, device="cuda"))
-    floor = float(np.abs(r32.cpu().numpy() - r64).max())
-    rb_err = float(np.abs(rb_d - rb_h).max())
-    log(f"[facaded] device refine vs float64 host ({t_host:.2f} s): "
-        f"{len(P0)} lines, up to {Pm.shape[1]} members; median rms "
-        f"{np.median(rb_h):.6f} -> {np.median(ra_d):.6f} (host "
-        f"{np.median(ra_h):.6f}) px, rms-before diff {rb_err:.3e} (float32 "
-        f"residual floor {floor:.3e}) px, worst excess "
-        f"{float((ra_d - ra_h).max()):.3e} px, min alignment {align:.7f},"
-        f" max perpendicular offset {perp:.3e}")
-    require(bool((np.abs(rb_d - rb_h) <= 1e-4 * rb_h + max(1e-4, floor))
-                 .all()) and
-            np.median(ra_d) <= np.median(ra_h) * 1.1 + 1e-3 and
-            bool((ra_d <= ra_h + 0.05).all()) and align > 0.9999 and
-            perp < 5e-3, "facaded: device refine differs from the host "
-            "(tests/test_refine.py criteria)")
+    _hold_refine(rcalls[-1], "facaded")
     txt = _txt_text(l3d)
     log(f"[facaded] model TXT sha256 {_sha256(txt)} ({len(txt)} bytes)")
     return dict(warm=warm, best=best_s, counts=counts, stats=l3d.stats,
@@ -1308,7 +1345,7 @@ CLI_SCORE_OUTSIDE_MAX = 2e-3      # fraction of scored slots
 CLI_SCORE_FAR_MAX = 1e-5          # fraction beyond 3x the tolerance
 
 
-def _check_path_kernels(l3d, tag, views=None):
+def _check_path_kernels(l3d, tag, views=None, capped=False):
     """The kernels of a finished Line3D run against their plain twins on
     the card, at the shapes that run gave them: for `views`, by default
     the first view of each match-slot width the run used and the last
@@ -1322,8 +1359,10 @@ def _check_path_kernels(l3d, tag, views=None):
     the two, to the twin run in float64 on the same table with the support
     threshold moved down and up by the scoring tolerance (a lower threshold
     only adds supports, so the two runs bracket every value that supports
-    at the threshold can give a slot), with the bounds above.  The launches
-    made here come after the run's counts were read."""
+    at the threshold can give a slot), with the bounds above.  With
+    `capped` (a run with uncapped_fallback=False) each view is re-matched
+    at the run's caps and must overflow as the run's view did.  The
+    launches made here come after the run's counts were read."""
     import torch
     from line3d_tpu_torch.match import collinearity as col, engine, \
         pairwise, pairwise_cuda as k1, scoring as sc
@@ -1369,8 +1408,12 @@ def _check_path_kernels(l3d, tag, views=None):
         require(all(abs(g - w) <= k1_bad for g, w in zip(mine, want)),
                 f"{tag}: view {v}'s probe counters differ from the twin's")
 
-        vm_d, row_d, med_d, o = _match_one(ctx, l3d.neighbors, v)
-        require(vm_d.m_total == M and vm_d.overflow == 0,
+        caps = (cfg.match_block_quota, min(
+            cfg.max_matches_per_segment,
+            max(len(n) for n in l3d.neighbors) * S)) if capped else None
+        vm_d, row_d, med_d, o = _match_one(ctx, l3d.neighbors, v, caps)
+        require(vm_d.m_total == M and
+                vm_d.overflow == (vm.overflow if capped else 0),
                 f"{tag}: view {v} was not re-matched at its run's width")
         if v == min(views):
             selection_syncs = _hold_selection(ctx, v, nb, o,
@@ -1883,12 +1926,14 @@ def phase_facade(card):
                 reduced=reduced)
 
 
-# the reduced facade of tests/test_torch_host.py's slow test (8 views at
-# 960 x 720, focal 900: S = 1,280, m_total 512, collinearity drops pairs in
-# view 5); there the port's CPU model has 434 lines, 428 of them with
-# line3d_tpu's member sets (it has 432), every difference entering at
-# matching
-REDUCED_FACADE = dict(num_views=8, width=960, height=720, focal=900.0)
+# the reduced facade of tests/test_torch_host.py's tier-1 tests, facade6
+# (6 views of a 10 x 6-cell facade at 960 x 720, focal 900), where the
+# port's CPU model is held to line3d_tpu's stage by stage in every tier-1
+# run (264 / 263 lines, 259 member sets shared, every difference entering
+# at matching); that file's slow facade8 (8 views, 12 x 10 cells) takes
+# ~55 s more on the CPU here
+REDUCED_FACADE = dict(num_views=6, width=960, height=720, focal=900.0,
+                      n_cols=10, n_rows=6, distance=13.0 * 10 / 12)
 # bounds of stage (f) there: verified-match sets may differ on less than
 # this share of a view's matches; a differing best-match pick must be a
 # near-tie (within this relative gap of the CPU's confidences), lie in a
@@ -1919,7 +1964,7 @@ def _reduced_facade_card_vs_cpu(card):
         l3d.compute_3d_model()
         torch.cuda.synchronize()
         return l3d
-    g, counts = _counted(card_run, "facade8")
+    g, counts = _counted(card_run, "facade6")
     t0 = time.perf_counter()
     c = feed(Line3D(config=cfg, use_sharded_engine=False, device="cpu"),
              scene, cams)
@@ -1928,7 +1973,7 @@ def _reduced_facade_card_vs_cpu(card):
     for l3d, where in ((g, "card"), (c, "CPU")):
         require(l3d.stats["match_overflow"] == 0 and
                 l3d.stats["views_recollin_exact"] == 1,
-                f"facade8: the {where} run overflowed or did not re-derive "
+                f"facade6: the {where} run overflowed or did not re-derive "
                 "view 5's collinearity")
 
     diffs = compare.verified_differences(c.matches, g.matches)
@@ -1936,7 +1981,7 @@ def _reduced_facade_card_vs_cpu(card):
                 for v, (n, _, oc, og) in diffs.items()}
     for v, (n, oc, og) in per_view.items():
         require(oc + og < VERIFIED_DIFF_MAX * n,
-                f"facade8: view {v}: verified matches differ on {oc} + {og} "
+                f"facade6: view {v}: verified matches differ on {oc} + {og} "
                 f"of {n}")
     picks = compare.best_pick_differences(c.best, g.best, c.matches,
                                           g.matches, rel=NEAR_TIE_REL)
@@ -1962,7 +2007,7 @@ def _reduced_facade_card_vs_cpu(card):
                 pick_c, pick_g)
             ties[(v, s)] = (float(gap64), float(err32))
             require(gap64 < err32,
-                    f"facade8: view {v} segment {s}: the card picks "
+                    f"facade6: view {v} segment {s}: the card picks "
                     f"{pick_g[:2]}, the CPU {pick_c[:2]}: not a near-tie, "
                     f"not traced, float64 gap {gap64:.3e} >= float32 error "
                     f"{err32:.3e}")
@@ -1985,7 +2030,7 @@ def _reduced_facade_card_vs_cpu(card):
                largest_confidence_gap=picks["max_gap"],
                float64_ties={f"{v}:{s}": t for (v, s), t in ties.items()},
                cpu_seconds=round(t_cpu, 1))
-    log(f"[facade8] card vs CPU: {json.dumps(out)}")
+    log(f"[facade6] card vs CPU: {json.dumps(out)}")
     return dict(out, counts=counts)
 
 
@@ -1995,12 +2040,13 @@ def _reduced_facade_card_vs_cpu(card):
 VIEW_SYNCS_MAX = 3
 
 
-def _match_one(ctx, neighbors, v):
+def _match_one(ctx, neighbors, v, caps=None):
     """View v's match step as the pipeline runs it (`engine.match_views`
-    of the one view): (ViewMatches, best row, median, the card tables)."""
+    of the one view, at `caps` or exact): (ViewMatches, best row, median,
+    the card tables)."""
     from line3d_tpu_torch.match import engine
     tables = {}
-    (vm, row, med), = engine.match_views(ctx, neighbors, [v],
+    (vm, row, med), = engine.match_views(ctx, neighbors, [v], caps=caps,
                                          tables=tables).values()
     return vm, row, med, tables[v]
 
@@ -2159,7 +2205,7 @@ def _compare_best(bg, bc, rg, rc, flip_rows):
 # 127.0.0.1, rank r on cuda:{r % cards} (two ranks share the card of a
 # one-card machine).  The script starts itself once per rank with this
 # variable set to "kind,port,rank,ranks,outdir" (kind: the phase,
-# multiproc or scale); a rank that fails, hangs past
+# multiproc, scale or scalefit); a rank that fails, hangs past
 # MULTIPROC_TIMEOUT_S or writes another model fails the phase.
 MULTIPROC_ENV = "L3D_CHIP_SMOKE_RANK"
 MULTIPROC_MIN_RANKS = 2
@@ -2603,6 +2649,262 @@ def phase_scale(card):
                 peak=peak, lines=st["num_lines"], ranks=ranks, wall=wall)
 
 
+# phase cudatests: the `cuda`-marked tests run on the card, in a process of
+# their own (tests/conftest.py imports JAX, which that machine lacks; hence
+# --noconftest).  On one card 35 pass and one skips,
+# test_pair_valid_kernel_on_second_card, which needs two cards.
+CUDA_TESTS = ["tests/test_torch_kernels_cuda.py", "-q", "-m", "cuda",
+              "--noconftest", "-p", "no:cacheprovider"]
+CUDA_TESTS_PASSED = 35            # on one card; one more on two or more
+CUDA_TESTS_TIMEOUT_S = 600
+
+
+def phase_cudatests():
+    """The `cuda` tests on the card (phase 18 of the module docstring):
+    fails unless pytest exits 0 and at least CUDA_TESTS_PASSED pass (one
+    more where a second card lets the two-card test run)."""
+    import re
+    import torch
+    here = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.run([sys.executable, "-m", "pytest", *CUDA_TESTS],
+                          cwd=here, capture_output=True, text=True,
+                          timeout=CUDA_TESTS_TIMEOUT_S)
+    lines = proc.stdout.strip().splitlines()
+    counts = {k: int(n) for n, k in re.findall(
+        r"(\d+) (passed|skipped|failed|errors?|deselected)",
+        lines[-1] if lines else "")}
+    want = CUDA_TESTS_PASSED + (torch.cuda.device_count() >= 2)
+    log(f"[cudatests] python -m pytest {' '.join(CUDA_TESTS)}: rc "
+        f"{proc.returncode}, passed {counts.get('passed', 0)}, skipped "
+        f"{counts.get('skipped', 0)}, failed {counts.get('failed', 0)}, "
+        f"errors {counts.get('errors', counts.get('error', 0))} (at least "
+        f"{want} must pass)")
+    if proc.returncode:
+        for ln in lines[-80:] + proc.stderr.strip().splitlines()[-20:]:
+            log(f"[cudatests]   {ln}")
+    require(proc.returncode == 0, f"cudatests: pytest exited "
+            f"{proc.returncode}")
+    require(counts.get("passed", 0) >= want,
+            f"cudatests: {counts.get('passed', 0)} passed, not {want}")
+    return counts
+
+
+# phase scalefit: phases facaded's and facadeba's configurations at
+# SCALE_VIEWS views, then the refinement alone at the JAX script's
+# 1000-view cluster count, the float64 host on its first
+# REFINE_BENCH_HOST clusters
+SCALEFIT_CONFIGS = ("facaded", "facadeba")
+REFINE_BENCH_CLUSTERS, REFINE_BENCH_HOST = 173_000, 20_000
+
+
+def _scalefit_models(tag, dev=None):
+    """For each configuration of SCALEFIT_CONFIGS: (the facade at
+    SCALE_VIEWS views in it, its config)."""
+    from line3d_tpu_torch.utils import scale_exact_profile as sep
+    out = {}
+    for name in SCALEFIT_CONFIGS:
+        cfg = sep.make_config(name)
+        scene, cams = sep.make_scene(SCALE_VIEWS, "facade", cfg,
+                                     dev or "cuda")
+        require(scene.max_segments == SCALE_S,
+                f"{tag}: S = {scene.max_segments}, not {SCALE_S}")
+        out[name] = (cfg, scene, cams)
+    return out
+
+
+def scalefit_rank(spec: str) -> int:
+    """One rank of phase scalefit: one model of the scale facade in each
+    configuration of SCALEFIT_CONFIGS on this rank's card; writes the TXTs,
+    the poses and its figures to the output directory."""
+    import torch.distributed as dist
+    from line3d_tpu_torch.parallel import multihost
+    from line3d_tpu_torch.utils import scale_exact_profile as sep
+    port, rank, nproc, outdir = spec.split(",")
+    rank, nproc = int(rank), int(nproc)
+    require(multihost.initialize(f"127.0.0.1:{port}", nproc, rank,
+                                 timeout_s=MULTIPROC_TIMEOUT_S),
+            "scalefit: no process group")
+    tag = f"scalefit rank {rank}"
+    out = dict(rank=rank)
+    for name, (cfg, scene, cams) in _scalefit_models(tag).items():
+        (secs, l3d, _, members), counts = _counted(
+            lambda: sep.run_once(cfg, scene, cams, 0.0, scene.device), tag)
+        st = l3d.stats
+        out[name] = dict(seconds=secs, counts=counts, device=str(scene.device),
+                         gathered_by_stage=st["gathered_by_stage"],
+                         **{k: st[k] for k in ("t_match", "t_diffusion",
+                                               "t_fh", "t_fit")})
+        log(f"[{tag}] {name} on {scene.device}: one run {secs:.3f} s "
+            f"(t_diffusion {st['t_diffusion']:.3f}, t_fit {st['t_fit']:.3f}"
+            f" s), {st['num_lines']} lines; received by stage "
+            f"{st['gathered_by_stage']}")
+        with open(os.path.join(outdir, f"{name}_{rank}.txt"), "w") as f:
+            f.write(_txt_text(l3d))
+        if l3d.refined_poses is not None:
+            with open(os.path.join(outdir, f"{name}_{rank}.poses"),
+                      "wb") as f:
+                f.write(sep.poses_bytes(l3d))
+    with open(os.path.join(outdir, f"rank_{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def phase_scalefit(card):
+    """The noisy-capture configurations at scale (phase 16 of the module
+    docstring)."""
+    import torch
+    from line3d_tpu_torch.cluster import diffusion_device as dd
+    from line3d_tpu_torch.fit import refine as rf
+    from line3d_tpu_torch.utils import refine_bench, \
+        scale_exact_profile as sep
+    out = {}
+    for name, (cfg, scene, cams) in _scalefit_models("scalefit").items():
+        tag = f"scalefit {name}"
+        torch.cuda.reset_peak_memory_stats()
+        mode = cfg.diffusion_mode
+        with spy(dd, f"diffuse_{mode}_device", []) as dcalls, \
+                spy(rf, "refine_lines_device", []) as rcalls:
+            cold, l3d, _, members = sep.run_once(cfg, scene, cams, 0.0,
+                                                 "cuda")
+            txt = _txt_text(l3d)
+            poses = sep.poses_bytes(l3d)
+            (warm, l3d_w, _, _), counts = _counted(
+                lambda: sep.run_once(cfg, scene, cams, 1e-3, "cuda"), tag)
+        st = l3d_w.stats
+        require(st["match_overflow"] == 0 and st["num_lines"] > 0,
+                f"{tag}: overflow left or no lines")
+        require(counts["pair_valid"] == counts["score"] == SCALE_VIEWS,
+                f"{tag}: K1 or the scoring kernel did not run once a view")
+        ms = sep.member_stats(members)
+        peak = torch.cuda.max_memory_allocated()
+        log(f"[{tag}] cold {cold:.3f} s, warm {warm:.3f} s on {card} "
+            f"(t_match {st['t_match']:.3f}, t_diffusion "
+            f"{st['t_diffusion']:.3f}, t_fh {st['t_fh']:.3f}, t_fit "
+            f"{st['t_fit']:.3f} s); {st['num_lines']} lines, "
+            f"{st['num_edges']} edges; clusters fitted and members {ms}; "
+            f"peak device memory {peak} B")
+        # the float64 host's reference mode takes ~300 s at 9.1 M edges on
+        # the card's machine: phase facaded holds that mode at 25 views
+        _hold_diffusion(dcalls[-1:], mode, tag, host=mode == "true")
+        rec = dict(cold=cold, warm=warm, counts=counts, members=ms,
+                   peak=peak, txt=txt, poses=poses, lines=st["num_lines"],
+                   **{k: st[k] for k in ("t_match", "t_diffusion", "t_fh",
+                                         "t_fit")})
+        if rcalls:
+            rec["refine"] = _hold_refine(rcalls[-1], tag)
+        else:
+            R, _ = l3d_w.refined_poses
+            orth = float(np.abs(np.einsum("vij,vkj->vik", R, R)
+                                - np.eye(3)).max())
+            log(f"[{tag}] BA rms {st['ba_rms_before']:.4f} -> "
+                f"{st['ba_rms_after']:.4f} px; max |R R^T - I| {orth:.2e}")
+            require(st["ba_rms_after"] <= st["ba_rms_before"] + 1e-6 and
+                    R.shape == (SCALE_VIEWS, 3, 3) and orth < 1e-5,
+                    f"{tag}: BA made the rms worse or its poses are not "
+                    f"orthonormal")
+            rec["ba_rms"] = [st["ba_rms_before"], st["ba_rms_after"]]
+        out[name] = rec
+    n_ranks = max(MULTIPROC_MIN_RANKS, torch.cuda.device_count())
+    with tempfile.TemporaryDirectory() as outdir:
+        wall = _run_ranks("scalefit", n_ranks, outdir)
+        ranks = []
+        for r in range(n_ranks):
+            with open(os.path.join(outdir, f"rank_{r}.json")) as f:
+                ranks.append(json.load(f))
+            for name in SCALEFIT_CONFIGS:
+                with open(os.path.join(outdir, f"{name}_{r}.txt")) as f:
+                    require(f.read() == out[name]["txt"], f"scalefit: rank "
+                            f"{r}'s {name} model differs from one process's")
+                if out[name]["poses"] is not None:
+                    with open(os.path.join(outdir, f"{name}_{r}.poses"),
+                              "rb") as f:
+                        require(f.read() == out[name]["poses"],
+                                f"scalefit: rank {r}'s refined poses differ "
+                                f"from one process's")
+    log(f"[scalefit] {n_ranks} ranks in {wall:.1f} s wall: every rank's "
+        f"TXT of both configurations and its refined poses equal one "
+        f"process's byte for byte; per rank (config: s, t_diffusion, "
+        f"t_fit, bytes received by the fit): "
+        + "; ".join(f"rank {r['rank']} " + ", ".join(
+            f"{n}: {r[n]['seconds']:.3f} {r[n]['t_diffusion']:.3f} "
+            f"{r[n]['t_fit']:.3f} {r[n]['gathered_by_stage']['fit']}"
+            for n in SCALEFIT_CONFIGS) for r in ranks))
+    rb = refine_bench.run(REFINE_BENCH_CLUSTERS, "cuda", REFINE_BENCH_HOST)
+    ag = rb["agreement"]
+    log(f"[scalefit] refine_bench C = {rb['C']} x M = {rb['M']} on {card} "
+        f"(blocks of {rb['block']}): device cold {rb['device_cold_s']:.3f} "
+        f"s, warm {rb['device_warm_s']:.3f} s, median rms "
+        f"{rb['device_rms_before']:.4f} -> {rb['device_rms_after']:.4f} px;"
+        f" float64 host on the first {rb['host_clusters']} clusters "
+        f"{rb['host_s']:.2f} s, {rb['host_rms_before']:.4f} -> "
+        f"{rb['host_rms_after']:.4f} px; agreement {ag}; peak device "
+        f"memory {rb['max_memory_allocated']} B")
+    require(ag["ok"], "scalefit: refine_bench's device optimum differs from "
+            "the float64 host (tests/test_refine.py criteria)")
+    for rec in out.values():
+        del rec["txt"], rec["poses"]
+    return dict(runs=out, ranks=ranks, wall=wall, refine_bench=rb)
+
+
+# phase clutter: the P25 stress shape (make_demo_scene with 2,990 random
+# segments a view, S = 3,072) at CLUTTER_VIEWS views, exact and capped;
+# the kernels held at CLUTTER_HELD_VIEWS' shapes
+CLUTTER_VIEWS = 100
+CLUTTER_HELD_VIEWS = (0, 50, 99)
+
+
+def phase_clutter(card):
+    """The clutter shape past 25 views (phase 17 of the module docstring):
+    one exact and one capped (uncapped_fallback=False) model of
+    make_demo_scene(CLUTTER_VIEWS, 2990), each counted, and K1, the
+    scoring kernel and K4 against their twins at each run's shapes."""
+    import torch
+    from line3d_tpu_torch.utils import scale_exact_profile as sep
+    out = {}
+    for capped in (False, True):
+        tag = f"clutter {'capped' if capped else 'exact'}"
+        cfg = sep.make_config("exact", capped)
+        t0 = time.perf_counter()
+        scene, cams = sep.make_scene(CLUTTER_VIEWS, "clutter", cfg, "cuda")
+        t_build = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        (secs, l3d, _, _), counts = _counted(
+            lambda: sep.run_once(cfg, scene, cams, 0.0, "cuda"), tag,
+            wide=not capped)
+        st = l3d.stats
+        mt, mc = np.unique(st["m_total"], return_counts=True)
+        peak = torch.cuda.max_memory_allocated()
+        log(f"[{tag}] make_demo_scene({CLUTTER_VIEWS}, 2990) built in "
+            f"{t_build:.2f} s (S {scene.max_segments}); one run {secs:.3f} "
+            f"s on {card} (t_collin {st['t_collin']:.3f}, t_match "
+            f"{st['t_match']:.3f}, t_cluster {st['t_cluster']:.3f} s); "
+            f"{st['num_lines']} lines; match_overflow "
+            f"{st['match_overflow']}, views re-matched "
+            f"{st['views_rematched_uncapped']}, m_total per view "
+            f"{dict(zip(mt.tolist(), mc.tolist()))}; launches {counts}; "
+            f"peak device memory {peak} B")
+        require(scene.max_segments == 3072 and st["num_lines"] > 0,
+                f"{tag}: not the S = 3,072 shape, or no model")
+        if capped:
+            require(st["match_overflow"] > 0 and
+                    st["views_rematched_uncapped"] == 0 and
+                    set(st["m_total"]) == {256} and
+                    counts["score_wide"] == 0,
+                    f"{tag}: not a capped pass at m_total 256")
+        else:
+            _scale_exact(st, l3d, tag)
+        require(counts["pair_valid"] == CLUTTER_VIEWS,
+                f"{tag}: K1 did not run once a view")
+        held = _check_path_kernels(l3d, tag, views=CLUTTER_HELD_VIEWS,
+                                   capped=capped)
+        out["capped" if capped else "exact"] = dict(
+            seconds=secs, counts=counts, held=held, peak=peak,
+            lines=st["num_lines"], overflow=st["match_overflow"],
+            m_total={int(m): int(c) for m, c in zip(mt, mc)})
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2613,7 +2915,8 @@ def main() -> int:
     require("jax" not in sys.modules, "JAX was imported")
     if os.environ.get(MULTIPROC_ENV):
         kind, spec = os.environ[MULTIPROC_ENV].split(",", 1)
-        return dict(multiproc=multiproc_rank, scale=scale_rank)[kind](spec)
+        return dict(multiproc=multiproc_rank, scale=scale_rank,
+                    scalefit=scalefit_rank)[kind](spec)
 
     seconds = {}
 
@@ -2639,6 +2942,9 @@ def main() -> int:
     cl = timed("cli", phase_cli, card)
     mp = timed("multiproc", phase_multiproc, card, fa, fd, fb)
     sc = timed("scale", phase_scale, card)
+    sf = timed("scalefit", phase_scalefit, card)
+    cu = timed("clutter", phase_clutter, card)
+    ct = timed("cudatests", phase_cudatests)
     require("jax" not in sys.modules and "line3d_tpu" not in sys.modules,
             "JAX or line3d_tpu was imported")
     d2h = (fa["copies"] or {}).get("DtoH", {})
@@ -2657,7 +2963,11 @@ def main() -> int:
     # phase's runs (b) and (c), `launches_cli` those of the CLI's first
     # run, `held_at_cli_shapes` that run's comparison with the twins,
     # `launches_scale` the counts of phase scale's warm run (and of each of
-    # its ranks' run), `held_at_scale_shapes` its comparison.  No
+    # its ranks' run), `held_at_scale_shapes` its comparison,
+    # `launches_scalefit` the counts of phase scalefit's warm run of each
+    # configuration (and of each of its ranks' run), `launches_clutter`
+    # those of phase clutter's exact and capped runs, and
+    # `held_at_clutter_shapes` their comparisons.  No
     # single PyTorch call computes any of these functions, so `library_ms`
     # is null throughout.
     cnt = fa["counts"]
@@ -2673,6 +2983,8 @@ def main() -> int:
             collin_pairs=held["collin_pairs"])
     held_cli, held_scale = held_by_kernel(cl["held"]), \
         held_by_kernel(sc["held"])
+    held_clutter = {k: held_by_kernel(cu[k]["held"])
+                    for k in ("exact", "capped")}
 
     def also(key):
         return dict(launches_capped=[cp["b"]["counts"][key],
@@ -2682,6 +2994,8 @@ def main() -> int:
                     launches_reduced_facade=fa["reduced"]["counts"][key],
                     held_at_cli_shapes=held_cli[key],
                     held_at_scale_shapes=held_scale[key],
+                    held_at_clutter_shapes={k: h[key] for k, h in
+                                            held_clutter.items()},
                     **multiproc_launches(key))
 
     def multiproc_launches(key):
@@ -2691,7 +3005,14 @@ def main() -> int:
                                                for r in mp["ranks"]],
                     launches_scale=sc["counts"][key],
                     launches_scale_ranks=[r["counts"][key]
-                                          for r in sc["ranks"]])
+                                          for r in sc["ranks"]],
+                    launches_scalefit={
+                        n: r["counts"][key] for n, r in sf["runs"].items()},
+                    launches_scalefit_ranks=[
+                        {n: r[n]["counts"][key] for n in SCALEFIT_CONFIGS}
+                        for r in sf["ranks"]],
+                    launches_clutter={k: cu[k]["counts"][key]
+                                      for k in ("exact", "capped")})
     kernels = [
         dict(name="pair_valid (K1)", route="cuda",
              source="line3d_tpu_torch/csrc/pair_valid.cu",
@@ -2722,7 +3043,7 @@ def main() -> int:
              replaces="line3d_tpu/match/pairwise_pallas.py:203",
              path="validate", launches=k5["launches"],
              launches_per_facade_run=cnt["pair_dense"], library_ms=None,
-             held_at_scale_shapes=None,
+             held_at_scale_shapes=None, held_at_clutter_shapes=None,
              **multiproc_launches("pair_dense"),
              **{key: k5[key] for key in ("max_abs_err", "ms", "plain_ms",
                                          "bound_ms", "bound_by")}),
@@ -2731,7 +3052,7 @@ def main() -> int:
              replaces="bench.py:398", path="peak",
              launches=k6["launches"],
              launches_per_facade_run=cnt["fma_peak"], library_ms=None,
-             held_at_scale_shapes=None,
+             held_at_scale_shapes=None, held_at_clutter_shapes=None,
              **multiproc_launches("fma_peak"),
              **{key: k6[key] for key in ("max_abs_err", "ms", "plain_ms",
                                          "bound_ms", "bound_by",

@@ -84,10 +84,17 @@ class _PairSums:
     Built from n [K], and `index(rows, c)` giving the A (and B) indices of
     rows `rows` at positions c [L] as [len(rows), L] tensors.  Rows are
     grouped by length class (n in (L/2, L], L a power of two) and padded to
-    L with a sentinel index that reads an appended zero."""
+    L with a sentinel index that reads an appended zero.  The padded index
+    planes are formed at each call, CHUNK elements at a time: for all rows
+    at once they are O(E x degree) (60 GB for the 1000-view facade's 41 M
+    edges).  Each row's sum is its own, so the chunking changes no bit."""
+
+    # index elements formed at once (two int64 planes and a float plane)
+    CHUNK = 1 << 25
 
     def __init__(self, n: torch.Tensor, index, sentinel: int):
         self.K = n.numel()
+        self.n, self.index, self.sentinel = n, index, sentinel
         self.classes = []
         n_host = n.cpu().numpy()
         top = int(n_host.max(initial=0))
@@ -95,25 +102,28 @@ class _PairSums:
         while top and L // 2 < top:
             sel = np.flatnonzero((n_host > L // 2) & (n_host <= L))
             if len(sel):
-                rows = torch.as_tensor(sel, device=n.device)
-                c = torch.arange(L, device=n.device)
-                pad = c[None, :] >= n[rows][:, None]
-                idx = [torch.where(pad, sentinel, x) for x in index(rows, c)]
-                self.classes.append((rows, idx))
+                self.classes.append((torch.as_tensor(sel, device=n.device),
+                                     torch.arange(L, device=n.device)))
             L *= 2
 
     def __call__(self, a_ext, b_ext=None) -> torch.Tensor:
         out = torch.zeros(self.K, dtype=a_ext.dtype, device=a_ext.device)
-        for rows, idx in self.classes:
-            v = a_ext[idx[0]]
-            if b_ext is not None:
-                v = v * b_ext[idx[1]]
-            # pairwise halving over the padded axis: elementwise adds in an
-            # order fixed by L alone
-            while v.shape[1] > 1:
-                h = v.shape[1] // 2
-                v = v[:, :h] + v[:, h:]
-            out[rows] = v[:, 0]
+        for rows_all, c in self.classes:
+            step = max(1, self.CHUNK // len(c))
+            for r0 in range(0, len(rows_all), step):
+                rows = rows_all[r0:r0 + step]
+                pad = c[None, :] >= self.n[rows][:, None]
+                idx = [torch.where(pad, self.sentinel, x)
+                       for x in self.index(rows, c)]
+                v = a_ext[idx[0]]
+                if b_ext is not None:
+                    v = v * b_ext[idx[1]]
+                # pairwise halving over the padded axis: elementwise adds
+                # in an order fixed by L alone
+                while v.shape[1] > 1:
+                    h = v.shape[1] // 2
+                    v = v[:, :h] + v[:, h:]
+                out[rows] = v[:, 0]
         return out
 
 
@@ -122,44 +132,66 @@ def _ext(x):
     return torch.cat([x, x.new_zeros(1)])
 
 
+# the merge walk runs on chunks of edges whose walks can meet at most this
+# many times in all (the lesser degree bounds an edge's meetings)
+WALK_CHUNK = 1 << 28
+
+
 def _merge_walk_hits(p: DiffusionPlan, lo: int, hi: int, dev):
     """The "true"-mode merge walk (line3d_tpu's _diffuse_true_kernel
     :190-210), run once: for every row-sorted entry e = (i, j) in [lo, hi),
     walk P's row i (keys: column ids) and W's column j (keys: row ids) by
     key comparison.  Where the keys meet, P[i, k] * W[k, j] enters the dot.
     The walk depends on the pattern alone, so its meeting points are the
-    same in every iteration.  Returns (n [hi - lo], index fn) for
-    _PairSums, rows counted from lo."""
+    same in every iteration.  It runs on chunks of edges of at most
+    WALK_CHUNK possible meetings and keeps each meeting's two positions as
+    int32: for all edges at once in int64, with their sort, they outgrow
+    an 80 GB card at the 1000-view facade's 41 M edges.  Each edge's
+    meetings keep their walk order, so the chunks change no bit.  Returns (n [hi - lo], index fn)
+    for _PairSums, rows counted from lo."""
     t = lambda x: torch.as_tensor(x, device=dev)  # noqa: E731
     rowstart, deg = t(p.rowstart), t(p.deg)
     rj_keys, ci_keys = t(p.rj), t(p.ci)
     base_a = rowstart[t(p.ri)]          # P's row i_e, row-sorted layout
     base_b = rowstart[t(p.rj)]          # W's column j_e, col-sorted layout
     len_a, len_b = deg[t(p.ri)], deg[t(p.rj)]
-    e = torch.arange(lo, hi, device=dev)
-    a = torch.zeros_like(e)
-    b = torch.zeros_like(e)
-    he, ha, hb = [], [], []
-    while e.numel():
-        pa, pb = base_a[e] + a, base_b[e] + b
-        ka, kb = rj_keys[pa], ci_keys[pb]
-        hit = ka == kb
-        he.append(e[hit])
-        ha.append(pa[hit])
-        hb.append(pb[hit])
-        a = a + (ka <= kb)
-        b = b + (kb <= ka)
-        live = (a < len_a[e]) & (b < len_b[e])
-        e, a, b = e[live], a[live], b[live]
-    he, ha, hb = torch.cat(he), torch.cat(ha), torch.cat(hb)
-    order = torch.sort(he, stable=True).indices   # by edge, walk order
-    ha, hb = ha[order], hb[order]
-    n = torch.bincount(he - lo, minlength=hi - lo)
+    bound = np.cumsum(np.minimum(p.deg[p.ri[lo:hi]], p.deg[p.rj[lo:hi]]))
+    cuts = np.searchsorted(bound, np.arange(WALK_CHUNK, bound[-1] if
+                                            len(bound) else 0, WALK_CHUNK))
+    ns = [torch.zeros(0, dtype=torch.int64, device=dev)]
+    has = [torch.zeros(0, dtype=torch.int32, device=dev)]
+    hbs = list(has)
+    for c0, c1 in zip(np.r_[0, cuts], np.r_[cuts, hi - lo]):
+        if c1 == c0:
+            continue
+        e = torch.arange(lo + c0, lo + c1, device=dev)
+        a = torch.zeros_like(e)
+        b = torch.zeros_like(e)
+        he, ha, hb = [], [], []
+        while e.numel():
+            pa, pb = base_a[e] + a, base_b[e] + b
+            ka, kb = rj_keys[pa], ci_keys[pb]
+            hit = ka == kb
+            he.append(e[hit])
+            ha.append(pa[hit])
+            hb.append(pb[hit])
+            a = a + (ka <= kb)
+            b = b + (kb <= ka)
+            live = (a < len_a[e]) & (b < len_b[e])
+            e, a, b = e[live], a[live], b[live]
+        he = torch.cat(he)
+        order = torch.sort(he, stable=True).indices   # by edge, walk order
+        has.append(torch.cat(ha)[order].to(torch.int32))
+        hbs.append(torch.cat(hb)[order].to(torch.int32))
+        ns.append(torch.bincount(he - lo - int(c0),
+                                 minlength=int(c1 - c0)))
+    ha, hb = torch.cat(has), torch.cat(hbs)
+    n = torch.cat(ns)
     off = torch.cumsum(n, 0) - n
 
     def index(rows, c):
         k = (off[rows][:, None] + c[None, :]).clamp_max(max(len(ha) - 1, 0))
-        return ha[k], hb[k]
+        return ha[k].long(), hb[k].long()
     return n, index
 
 

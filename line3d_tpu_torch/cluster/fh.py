@@ -11,19 +11,21 @@ becomes w + c / size.
 Union-find is inherently sequential (SURVEY.md §7 hard part #2) and runs in
 the native C++ library.  Copy of `line3d_tpu/cluster/fh.py`: the exact
 native path (`fh_cluster`) and the round-parallel approximation
-(`fh_cluster_parallel`, config fh_backend="parallel").
+(`fh_cluster_parallel`, config fh_backend="parallel", its rounds in torch
+on a device).
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from ..native import load as native_load
 
 
 def fh_cluster_parallel(edges_i: np.ndarray, edges_j: np.ndarray,
                         edges_w: np.ndarray, num_nodes: int,
-                        c: float = 1.0, max_rounds: int = 10000
-                        ) -> np.ndarray:
+                        c: float = 1.0, max_rounds: int = 10000, *,
+                        device) -> np.ndarray:
     """Round-parallel APPROXIMATION of F-H clustering — SURVEY.md
     §7.6's "hard part #2" prototype (config: fh_backend="parallel"),
     measured for cluster agreement against the exact serial merge order
@@ -55,10 +57,66 @@ def fh_cluster_parallel(edges_i: np.ndarray, edges_j: np.ndarray,
     the parallel schedule has already routed past) — measured in
     tests/test_cluster.py and recorded in PARITY.md; fh_cluster below
     remains the exact default and this is the documented scale mode.
+
+    The rounds run as torch operations on `device` (line3d_tpu runs them
+    in numpy): the largest cluster takes in about one member a round at
+    the end, so the rounds number about its size (~10·V on a dense arc
+    of V views, up to max_rounds), each over all E edges, which on the
+    host is minutes at the 256-view facade's 9.1 M edges.  Each step is
+    line3d_tpu's: the per-root minimum edge is a scatter
+    "amin" of edge positions (order-free, so the same on any device), the
+    comparisons and the threshold update are float64, so the labels are
+    line3d_tpu's on any device.
     """
-    labels = np.arange(num_nodes, dtype=np.int64)
+    dev = torch.device(device)
     if len(edges_w) == 0 or num_nodes == 0:
-        return labels
+        return np.arange(num_nodes, dtype=np.int64)
+    order = np.argsort(edges_w, kind="stable")
+    ei, ej, ew = (torch.as_tensor(np.asarray(x, dt)[order], device=dev)
+                  for x, dt in ((edges_i, np.int64), (edges_j, np.int64),
+                                (edges_w, np.float64)))
+    E, n = len(order), num_nodes
+    labels = torch.arange(n, device=dev)
+    thr = torch.full((n,), c, dtype=torch.float64, device=dev)
+    c_t = torch.tensor(c, dtype=torch.float64, device=dev)
+    alive = ei != ej
+    position = torch.arange(E, device=dev)
+    for _ in range(max_rounds):
+        ra = labels[ei]
+        rb = labels[ej]
+        alive &= ra != rb
+        adm = alive & (ew <= thr[ra]) & (ew <= thr[rb])
+        if not bool(adm.any()):
+            break
+        # per-root minimum admissible edge: edges are weight-sorted, so the
+        # least position is the LOWEST-weight (and earliest, matching the
+        # stable tie order) edge; E where a root has none
+        e_adm = torch.where(adm, position, E)
+        none = torch.full((n,), E, dtype=torch.int64, device=dev)
+        choose = torch.minimum(
+            none.scatter_reduce(0, ra, e_adm, "amin"),   # root is i
+            none.scatter_reduce(0, rb, e_adm, "amin"))   # root is j
+        roots = torch.nonzero(choose < E)[:, 0]
+        e_r = choose[roots]
+        pa = ra[e_r]
+        pb = rb[e_r]
+        partner = torch.where(pa == roots, pb, pa)
+        # merge ONLY mutual choices (both endpoints picked the same
+        # edge), larger root id adopting the smaller — one merge per
+        # component per round, so the F-H threshold update is exact per
+        # pair.  The globally smallest admissible edge is always mutual,
+        # so every round makes progress.
+        mutual = (choose[partner] == e_r) & (partner < roots)
+        parent = torch.arange(n, device=dev)
+        parent[roots[mutual]] = partner[mutual]
+        labels = parent[labels]
+        size = torch.bincount(labels, minlength=n)
+        dst = partner[mutual]
+        # a tensor divided by a tensor: `c / tensor` multiplies by the
+        # reciprocal, which is not the correctly rounded quotient
+        thr[dst] = ew[e_r[mutual]] + \
+            c_t / size[dst].clamp_min(1).to(torch.float64)
+    return labels.cpu().numpy()
     order = np.argsort(edges_w, kind="stable")
     ei = np.asarray(edges_i, np.int64)[order]
     ej = np.asarray(edges_j, np.int64)[order]

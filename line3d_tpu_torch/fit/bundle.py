@@ -63,19 +63,32 @@ def _rodrigues(w):
     return I + a[:, None, None] * Wx + b[:, None, None] * (Wx @ Wx)
 
 
-def _bundle_residuals(P0, d, K, R0, t0, theta, vidx, p1, p2, mask):
-    """Perpendicular reprojection residuals with camera increments.
+def _member_residuals(P0, d, K, R0, t0, theta, mc, mv, q1, q2):
+    """Perpendicular reprojection residuals of each member with camera
+    increments.
 
-    P0, d: [C, 3]; K/R0/t0: [V, 3, 3]/[V, 3, 3]/[V, 3];
-    theta: [V, 6] (axis-angle, translation); vidx: [C, M] member view ids;
-    p1, p2: [C, M, 2]; mask: [C, M].  Returns ([C, M, 2] residuals, ok).
-    refine.residuals_t with Pm built from the incremented poses:
+    P0, d: [C, 3]; K/R0/t0: [V, 3, 3]/[V, 3, 3]/[V, 3]; theta: [V, 6]
+    (axis-angle, translation); mc, mv: [N] each member's cluster and view;
+    q1, q2: [N, 2] its endpoints.  Returns ([N, 2] residuals, [N] ok):
+    refine.residuals_t of each member's line in its own view, with
     P_v = K_v [exp([ω]×) R0_v | t0_v + τ_v].
     """
     R = _rodrigues(theta[:, :3]) @ R0
     t = t0 + theta[:, 3:]
     P = K @ torch.cat([R, t[..., None]], dim=-1)           # [V, 3, 4]
-    return residuals_t(P0, d, P[vidx.clamp_min(0)], p1, p2, mask)
+    ones = torch.ones((mc.shape[0], 1), dtype=torch.bool, device=mc.device)
+    r, ok = residuals_t(P0[mc], d[mc], P[mv][:, None], q1[:, None],
+                        q2[:, None], ones)
+    return r[:, 0], ok[:, 0]
+
+
+def _seg_sum(x, lengths):
+    """[n, k] sums of the consecutive runs of rows of x [N, k] whose
+    lengths [n] are given (0 for an empty run): torch.segment_reduce, which
+    adds each run's rows in order with no atomics, so the bits depend on
+    the inputs and their shapes alone."""
+    return torch.segment_reduce(x, "sum", lengths=lengths, axis=0,
+                                unsafe=True, initial=0.0)
 
 
 def _cat(parts, empty):
@@ -83,23 +96,66 @@ def _cat(parts, empty):
     return torch.cat(parts) if parts else empty
 
 
-def _bundle(P0, d, K, R0, t0, vidx, p1, p2, mask, n_res: float, block: int,
-            iterations: int, huber_delta: float, damping: float):
+def _plan(counts, mv, V: int, block: int, dev) -> list:
+    """Per block of `block` clusters: its clusters and member rows, and
+    the runs of its member-residual rows (two per member) by cluster, by
+    (cluster, camera) and by camera, with the stable permutations that
+    group them.  A member's view is fixed, so these hold for the whole
+    solve."""
+    def t(x):
+        return torch.as_tensor(np.asarray(x, np.int64), device=dev)
+    cstart = np.concatenate([[0], np.cumsum(counts)]).astype(np.int64)
+    C = len(counts)
+    plan = []
+    for c0 in range(0, C, block):
+        c1 = min(c0 + block, C)
+        m0, m1 = int(cstart[c0]), int(cstart[c1])
+        rows_v = np.repeat(mv[m0:m1], 2)
+        rows_c = np.repeat(np.arange(c1 - c0), 2 * counts[c0:c1])
+        key = rows_c * V + rows_v
+        perm_cv = np.argsort(key, kind="stable")
+        keys, lens_cv = np.unique(key[perm_cv], return_counts=True)
+        plan.append(dict(
+            c=slice(c0, c1), m=slice(m0, m1), vix=t(rows_v),
+            mc=t(np.repeat(np.arange(c1 - c0), counts[c0:c1])),
+            lens_c=t(2 * counts[c0:c1]), perm_cv=t(perm_cv),
+            lens_cv=t(lens_cv), key_c=t(keys // V), key_v=t(keys % V),
+            perm_v=t(np.argsort(rows_v, kind="stable")),
+            lens_v=t(np.bincount(rows_v, minlength=V))))
+    return plan
+
+
+def _bundle(P0, d, K, R0, t0, mc, mv, q1, q2, counts, n_res: float,
+            block: int, iterations: int, huber_delta: float,
+            damping: float):
     """The joint Gauss-Newton solve of line3d_tpu's _bundle_jit, on this
-    rank's clusters: P0, d, vidx, p1, p2, mask hold its whole blocks of
-    `block` clusters (all clusters in one process); n_res is the member
-    residual count of all clusters.  Each block is linearised, its line
-    blocks eliminated and back-substituted here; the block partials of the
-    reduced camera system are summed over all ranks in global block order
+    rank's clusters: P0, d [C, 3] hold its whole blocks of `block`
+    clusters (all clusters in one process), mc, mv, q1, q2 their members,
+    one row each, grouped by cluster (`counts` [C] members a cluster, a
+    host array); n_res is the member residual count of all clusters.
+    Each block is linearised, its line blocks eliminated and
+    back-substituted here; the block partials of the reduced camera system
+    are summed over all ranks in global block order
     (`multihost.ordered_sum`, the single process's loop), and the
     residuals behind the rms are gathered and summed on every rank as one
     process sums them, so every rank solves the same [6V, 6V] system and
-    takes the same accept decisions."""
-    C, M = vidx.shape
+    takes the same accept decisions.
+
+    Each residual couples one line and one camera, so the camera-camera
+    block of the normal equations is block-diagonal ([V, 6, 6]) and a
+    cluster's line-camera block [4, 6V] has columns only at its members'
+    cameras: both are sums of member rows by camera (by cluster and camera
+    for the line-camera block), formed here as segmented sums of the rows
+    in a fixed order, and the members are held unpadded.  line3d_tpu pads
+    every cluster to the largest member count M and forms those sums with
+    a one-hot-placed Jacobian [256, 2M, 6V] per sub-block of 256 clusters
+    contracted densely (the TPU's matrix unit): O(M·V²) operations a
+    cluster, with M ~ 10·V on a dense arc of views."""
+    C = P0.shape[0]
     V = K.shape[0]
     Q = 6 * V
     f32, dev = P0.dtype, P0.device
-    blocks = [slice(c0, min(c0 + block, C)) for c0 in range(0, C, block)]
+    plan = _plan(counts, mv.cpu().numpy(), V, block, dev)
     n_res = torch.tensor(n_res, dtype=f32, device=dev)
     eyeQ = torch.eye(Q, dtype=f32, device=dev)
     # the first camera's 6 DoF are pinned (gauge); rows/cols of the pinned
@@ -109,20 +165,21 @@ def _bundle(P0, d, K, R0, t0, vidx, p1, p2, mask, n_res: float, block: int,
     zt = torch.zeros((V, 6), dtype=f32, device=dev)
     eye4, eye6 = torch.eye(4, dtype=f32, device=dev), \
         torch.eye(6, dtype=f32, device=dev)
+    diag = torch.arange(V, device=dev)
 
     def rms_at(P0_, d_, R_, t_):
-        r = _cat([_bundle_residuals(P0_[sl], d_[sl], K, R_, t_, zt,
-                                    vidx[sl], p1[sl], p2[sl], mask[sl])[0]
-                  for sl in blocks], p1.new_zeros((0, M, 2)))
+        r = _member_residuals(P0_, d_, K, R_, t_, zt, mc, mv, q1, q2)[0]
         r = multihost.allgather_tensor(r)
         return torch.sqrt((r ** 2).sum() / n_res)
 
-    def linearize(P0c, dc, R_cur, t_cur, sl):
-        """Block `sl` at the current linearization point: its line-block
-        terms for the back-substitution and its partials of the reduced
-        camera system (Htt, S_fill, g_t, g_corr, packed)."""
+    def linearize(P0c, dc, R_cur, t_cur, b):
+        """Block b at the current linearization point: its line-block
+        terms for the back-substitution and its partial of the reduced
+        camera system (the fill S_fill = Σ Zᵀ Hinv Z, the camera blocks
+        with g_t beside each, g_corr = Σ Zᵀ Hinv g_l)."""
+        sl, m, mcb = b["c"], b["m"], b["mc"]
         P0b, db = P0c[sl], dc[sl]
-        vb, p1b, p2b, mb = vidx[sl], p1[sl], p2[sl], mask[sl]
+        mvb, q1b, q2b = mv[m], q1[m], q2[m]
         Cb = P0b.shape[0]
         u1, u2 = orthobasis_t(db)
         zx = torch.zeros((Cb, 4), dtype=f32, device=dev)
@@ -131,11 +188,11 @@ def _bundle(P0, d, K, R0, t0, vidx, p1, p2, mask, n_res: float, block: int,
             P0p = P0b + xi[:, 0:1] * u1 + xi[:, 1:2] * u2
             dp = db + xi[:, 2:3] * u1 + xi[:, 3:4] * u2
             dp = dp / torch.linalg.norm(dp, dim=1, keepdim=True)
-            return _bundle_residuals(P0p, dp, K, R_cur, t_cur, th,
-                                     vb, p1b, p2b, mb)[0]
+            return _member_residuals(P0p, dp, K, R_cur, t_cur, th, mcb,
+                                     mvb, q1b, q2b)[0]
 
-        r0, ok = _bundle_residuals(P0b, db, K, R_cur, t_cur, zt,
-                                   vb, p1b, p2b, mb)
+        r0, ok = _member_residuals(P0b, db, K, R_cur, t_cur, zt, mcb, mvb,
+                                   q1b, q2b)
         # exact forward-mode Jacobians: one jvp pass, vmapped over the 4
         # line-tangent and 6 camera-tangent directions.  The camera tangent
         # sets coordinate k of EVERY view at once — each residual touches
@@ -145,43 +202,38 @@ def _bundle(P0, d, K, R0, t0, vidx, p1, p2, mask, n_res: float, block: int,
                         zx.expand(6, Cb, 4)])
         tt = torch.cat([zt.expand(4, V, 6), eye6[:, None, :].expand(6, V, 6)])
         J = torch.func.vmap(
-            lambda a, b: torch.func.jvp(res_at, (zx, zt), (a, b))[1])(tx, tt)
-        Jx = J[:4].movedim(0, -1)                       # [Cb, M, 2, 4]
-        Jt = J[4:].movedim(0, -1)                       # [Cb, M, 2, 6]
+            lambda a, b_: torch.func.jvp(res_at, (zx, zt), (a, b_))[1])(
+            tx, tt)                                         # [10, Nb, 2]
         w = huber_weights(r0, ok, huber_delta)
+        # member-residual rows: i = (member, endpoint)
+        A = (J[:4].movedim(0, -1) * w[..., None]).reshape(-1, 4)
+        B = (J[4:].movedim(0, -1) * w[..., None]).reshape(-1, 6)
+        rf = (r0 * w).reshape(-1)
 
-        # flatten member-residual rows: i = (m, endpoint)
-        A = (Jx * w[..., None]).reshape(Cb, 2 * M, 4)
-        B = (Jt * w[..., None]).reshape(Cb, 2 * M, 6)
-        rf = (r0 * w).reshape(Cb, 2 * M)
-        vix = vb.clamp_min(0).repeat_interleave(2, dim=1)   # [Cb, 2M]
-
-        H_ll = torch.einsum("cia,cib->cab", A, A)
+        H_ll = _seg_sum((A[:, :, None] * A[:, None, :]).reshape(-1, 16),
+                        b["lens_c"]).reshape(Cb, 4, 4)
         tr_l = H_ll.diagonal(dim1=1, dim2=2).sum(dim=1)
         H_ll = H_ll + damping * eye4[None] * tr_l.clamp_min(1.0)[:, None, None]
         Hinv = torch.linalg.inv_ex(H_ll)[0]                # [Cb, 4, 4]
-        g_l = torch.einsum("cia,ci->ca", A, rf)
+        g_l = _seg_sum(A * rf[:, None], b["lens_c"])       # [Cb, 4]
 
-        # the block's share of the reduced camera system, summed over its
-        # sub-blocks of refine.BLOCK clusters in order: the [b, 2M, 6V]
-        # placed Jacobian G (G[c, i, :] = B[c, i, :] at the member's own
-        # camera's 6 columns, a one-hot outer product) is the only O(C·V)
-        # tensor of the solve, so it lives one sub-block at a time
-        part = None
-        for s0 in range(0, Cb, refine.BLOCK):
-            ss = slice(s0, s0 + refine.BLOCK)
-            onehot = torch.nn.functional.one_hot(vix[ss], V).to(f32)
-            G = (onehot[..., None] * B[ss][..., None, :]).reshape(
-                -1, 2 * M, Q)
-            Zc = torch.einsum("cia,ciq->caq", A[ss], G)
-            sub = torch.cat([
-                torch.einsum("ciq,cir->qr", G, G).reshape(-1),
-                torch.einsum("caq,cab,cbr->qr", Zc, Hinv[ss],
-                             Zc).reshape(-1),
-                torch.einsum("ciq,ci->q", G, rf[ss]),
-                torch.einsum("caq,cab,cb->q", Zc, Hinv[ss], g_l[ss])])
-            part = sub if part is None else part + sub
-        return (u1, u2, A, B, vix, Hinv, g_l), part
+        # each cluster's line-camera block Z [Cb, 4, 6V], its rows summed
+        # by camera; the camera blocks and g_t, all rows by camera
+        ZZ = _seg_sum((A[:, :, None] * B[:, None, :]).reshape(-1, 24)
+                      [b["perm_cv"]], b["lens_cv"])
+        Z = torch.zeros((Cb, V, 4, 6), dtype=f32, device=dev)
+        Z[b["key_c"], b["key_v"]] = ZZ.reshape(-1, 4, 6)
+        Z = Z.permute(0, 2, 1, 3).reshape(Cb, 4, Q)
+        cam = _seg_sum(torch.cat([(B[:, :, None] * B[:, None, :])
+                                  .reshape(-1, 36), B * rf[:, None]],
+                                 dim=1)[b["perm_v"]], b["lens_v"])
+        HZ = torch.einsum("cab,cbq->caq", Hinv, Z)
+        part = torch.cat([
+            (Z.reshape(-1, Q).T @ HZ.reshape(-1, Q)).reshape(-1),
+            cam.reshape(-1),
+            torch.einsum("caq,ca->q", Z,
+                         torch.einsum("cab,cb->ca", Hinv, g_l))])
+        return (u1, u2, A, B, Hinv, g_l), part
 
     def one_iteration(P0c, dc, R_cur, t_cur, rms_cur):
         """One damped GN step at the current linearization point; theta
@@ -189,18 +241,21 @@ def _bundle(P0, d, K, R0, t0, vidx, p1, p2, mask, n_res: float, block: int,
         are folded into (R_cur, t_cur).  rms_cur is the incumbent state's
         rms, carried through the loop for the accept gate."""
         lin, parts = [], []
-        for sl in blocks:
-            terms, part = linearize(P0c, dc, R_cur, t_cur, sl)
+        for b in plan:
+            terms, part = linearize(P0c, dc, R_cur, t_cur, b)
             lin.append(terms)
             parts.append(part)
         QQ = Q * Q
         tot = multihost.ordered_sum(
             _cat([x[None] for x in parts],
-                 torch.zeros((0, 2 * QQ + 2 * Q), dtype=f32, device=dev)))
-        Htt, S_fill = tot[:QQ].reshape(Q, Q), tot[QQ:2 * QQ].reshape(Q, Q)
-        g_t, g_corr = tot[2 * QQ:2 * QQ + Q], tot[2 * QQ + Q:]
-        S_part = Htt - S_fill
-        g_part = g_t - g_corr
+                 torch.zeros((0, QQ + 42 * V + Q), dtype=f32, device=dev)))
+        cam = tot[QQ:QQ + 42 * V].reshape(V, 42)
+        # S = Htt - S_fill, Htt the camera blocks on the diagonal
+        S_part = (-tot[:QQ]).reshape(V, 6, V, 6)
+        S_part[diag, :, diag, :] = S_part[diag, :, diag, :] + \
+            cam[:, :36].reshape(V, 6, 6)
+        S_part = S_part.reshape(Q, Q)
+        g_part = cam[:, 36:].reshape(Q) - tot[QQ + 42 * V:]
 
         trS = S_part.diagonal().sum()
         S = S_part + damping * trS.clamp_min(1.0) * eyeQ
@@ -213,14 +268,15 @@ def _bundle(P0, d, K, R0, t0, vidx, p1, p2, mask, n_res: float, block: int,
                              torch.zeros_like(dtheta))
 
         # back-substitute the line steps: δx_c = -Hinv (g_l + Z δθ), with
-        # Z δθ = Aᵀ (G δθ) and G δθ the member's own camera's increments
+        # Z δθ = Aᵀ (B δθ_v) summed over the cluster's rows
         dth_v = dtheta.reshape(V, 6)
         P0n, dn = [], []
-        for sl, (u1, u2, A, B, vix, Hinv, g_l) in zip(blocks, lin):
-            Bdth = (B * dth_v[vix]).sum(dim=-1)                 # [Cb, 2M]
-            Zdth = torch.einsum("cia,ci->ca", A, Bdth)
+        for b, (u1, u2, A, B, Hinv, g_l) in zip(plan, lin):
+            Bdth = (B * dth_v[b["vix"]]).sum(dim=-1)            # [2Nb]
+            Zdth = _seg_sum(A * Bdth[:, None], b["lens_c"])
             dx = -torch.einsum("cab,cb->ca", Hinv, g_l + Zdth)
             dx = torch.where(torch.isfinite(dx), dx, torch.zeros_like(dx))
+            sl = b["c"]
             P0n.append(P0c[sl] + dx[:, 0:1] * u1 + dx[:, 1:2] * u2)
             dnb = dc[sl] + dx[:, 2:3] * u1 + dx[:, 3:4] * u2
             dn.append(dnb / torch.linalg.norm(dnb, dim=1, keepdim=True))
@@ -271,12 +327,17 @@ def bundle_adjust(P0, d, K, R, t, vidx, p1, p2, mask, iterations: int = 5,
     def f(x, sl=slice(None)):
         return torch.as_tensor(np.asarray(x, np.float32)[sl], device=dev)
     mine = slice(lo, hi)
+    # this rank's members, one row each, grouped by cluster in order
+    mask = np.asarray(mask, bool)
+    mc, mm = np.nonzero(mask[mine])
     out = _bundle(f(P0, mine), f(d_unit, mine), f(K), f(R), f(t),
-                  torch.as_tensor(np.asarray(vidx, np.int64)[mine],
+                  torch.as_tensor(mc, device=dev),
+                  torch.as_tensor(np.asarray(vidx, np.int64)[mine][mc, mm],
                                   device=dev),
-                  f(p1, mine), f(p2, mine),
-                  torch.as_tensor(np.asarray(mask, bool)[mine], device=dev),
-                  n_res=float(max(2 * int(np.asarray(mask).sum()), 1)),
+                  f(np.asarray(p1)[mine][mc, mm]),
+                  f(np.asarray(p2)[mine][mc, mm]),
+                  mask[mine].sum(axis=1),
+                  n_res=float(max(2 * int(mask.sum()), 1)),
                   block=blk,
                   iterations=int(iterations), huber_delta=float(huber_delta),
                   damping=float(damping))

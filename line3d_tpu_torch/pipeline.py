@@ -417,10 +417,11 @@ class Line3D:
         b = multihost.GATHERED_BYTES
         ba_info = {}
         if graph.num_nodes:
-            fh_fn = fh.fh_cluster_parallel \
-                if cfg.fh_backend == "parallel" else fh.fh_cluster
-            labels = fh_fn(graph.edges_i, graph.edges_j, graph.edges_w,
-                           graph.num_nodes, cfg.fh_c)
+            args = (graph.edges_i, graph.edges_j, graph.edges_w,
+                    graph.num_nodes, cfg.fh_c)
+            # the round-parallel F-H runs its rounds on the Line3D's device
+            labels = fh.fh_cluster_parallel(*args, device=self.device) \
+                if cfg.fh_backend == "parallel" else fh.fh_cluster(*args)
             t2c = time.perf_counter()
             self.result = fit_lines.process_clusters(
                 graph, labels, best, self.transform, cfg,

@@ -219,7 +219,7 @@ def run(V: int, device) -> dict:
     args = (graph.edges_i, graph.edges_j, graph.edges_w, graph.num_nodes,
             cfg.fh_c)
     labels, t_fh = timed(fh.fh_cluster, *args)
-    labels_p, t_fhp = timed(fh.fh_cluster_parallel, *args)
+    labels_p, t_fhp = timed(fh.fh_cluster_parallel, *args, device=dev)
     result, t_fit = timed(fit_lines.process_clusters, graph, labels, best,
                           tr, cfg, S,
                           scene_segments=np.zeros((V, 1, 4), np.float32),

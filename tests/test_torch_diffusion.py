@@ -134,12 +134,14 @@ def test_resolve_backend_follows_the_line3d_device():
                                         (7, 40, 60, 0.1)])
 def test_fh_parallel_labels_identical(seed, n, e, c):
     i, j, w = _random_sym_graph(n, e, seed)
-    np.testing.assert_array_equal(tfh.fh_cluster_parallel(i, j, w, n, c),
+    np.testing.assert_array_equal(tfh.fh_cluster_parallel(i, j, w, n, c,
+                                                          device="cpu"),
                                   jfh.fh_cluster_parallel(i, j, w, n, c))
 
 
 def test_fh_parallel_labels_identical_on_house_graph(house_graph):
     g = house_graph
     args = (g.edges_i, g.edges_j, g.edges_w, g.num_nodes, 1.0)
-    np.testing.assert_array_equal(tfh.fh_cluster_parallel(*args),
+    np.testing.assert_array_equal(tfh.fh_cluster_parallel(*args,
+                                                          device="cpu"),
                                   jfh.fh_cluster_parallel(*args))

@@ -369,7 +369,7 @@ def check_fh(port, parallel):
     args = (graph.edges_i, graph.edges_j, graph.edges_w, graph.num_nodes,
             JConfig().fh_c)
     if parallel:
-        got, want = tfh.fh_cluster_parallel(*args), \
+        got, want = tfh.fh_cluster_parallel(*args, device="cpu"), \
             jfh.fh_cluster_parallel(*args)
     else:
         (*_, c), _kw, got = port["seen"]["fh_cluster"]
