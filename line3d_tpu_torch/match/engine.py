@@ -198,23 +198,8 @@ def match_view(ctx: ViewContext, v: int, nb: np.ndarray,
     valid_planes = pair_valid(segs_src, mask_src, segs_nb, mask_nb, F_nb,
                               RtKinv_src, RtKinv_nb, C_src, C_nb,
                               cfg.min_overlap_lower, cfg.min_overlap_upper)
-    # the probe counters, from one pass over the planes: the per-block
-    # sums give the per-neighbor counts
-    blk = pairwise.block_size(S)
-    block_counts = valid_planes.reshape(N, S, S // blk, blk).sum(dim=3)
-    counts = block_counts.sum(dim=2)                 # [N, S]
-    need, total, blockmax, nbmax = torch.stack([
-        counts.sum(dim=0).max(), counts.sum(), block_counts.max(),
-        counts.max()]).tolist()                      # one readback
-    if caps is None:
-        # no block quota (compact_rows_blockq clamps the quota to the
-        # block), and each neighbor's table cut to the view's own
-        # per-(segment, neighbor) bound before the merge (kept wide
-        # enough for the N tables to fill m_total slots): both lossless
-        quota, m_total = 128, min(_pow2(need), N * S)
-        per_nb_cap = max(_pow2(nbmax), -(-m_total // N))
-    else:
-        (quota, m_total), per_nb_cap = caps, None
+    need, total, blockmax, nbmax = plane_counters(valid_planes)
+    quota, m_total, per_nb_cap = capacities(need, nbmax, N, S, caps)
 
     res = pairwise.match_view_against_neighbors(
         segs_src, mask_src, RtKinv_src, C_src, segs_nb, mask_nb, F_nb,
@@ -231,13 +216,44 @@ def match_view(ctx: ViewContext, v: int, nb: np.ndarray,
                  float(np.float32(ctx.spatial_ks[v])),
                  support_threshold=float(cfg.support_threshold),
                  tcoords=tcoords)
+    return dict(cam=cam, tgt=tgt, depths=depths, valid=valid, conf=conf,
+                overflow=table_overflow(res, cam), need=need, total=total,
+                blockmax=blockmax, nbmax=nbmax, m_total=cam.shape[1])
 
+
+def plane_counters(valid_planes) -> list:
+    """The capacity-probe counters [need, total, blockmax, nbmax] of a
+    view's K1 planes [N, S, S], from one pass over them (the per-block sums
+    give the per-neighbor counts) and one readback."""
+    N, S, _ = valid_planes.shape
+    blk = pairwise.block_size(S)
+    block_counts = valid_planes.reshape(N, S, S // blk, blk).sum(dim=3)
+    counts = block_counts.sum(dim=2)                 # [N, S]
+    return torch.stack([counts.sum(dim=0).max(), counts.sum(),
+                        block_counts.max(), counts.max()]).tolist()
+
+
+def capacities(need: int, nbmax: int, N: int, S: int,
+               caps: tuple | None = None) -> tuple:
+    """(quota, m_total, per_nb_cap) of a view's compaction and merge: its
+    exact capacity from the probe counters, or, with `caps` = (quota,
+    m_total), those caps and no per-neighbor cut.  At exact capacity there
+    is no block quota (compact_rows_blockq clamps the quota to the block),
+    and each neighbor's table is cut to the view's own per-(segment,
+    neighbor) bound before the merge (kept wide enough for the N tables to
+    fill m_total slots): both lossless."""
+    if caps is not None:
+        return caps[0], caps[1], None
+    m_total = min(_pow2(need), N * S)
+    return 128, m_total, max(_pow2(nbmax), -(-m_total // N))
+
+
+def table_overflow(res: dict, cam):
+    """What a view's compaction (`res`) and merge into `cam` [S, M] dropped,
+    as a scalar on the device."""
     n_kept = res["valid"].sum(dim=(0, 2))            # per src seg, all nbrs
     dropped = (n_kept - cam.shape[1]).clamp_min(0)
-    overflow = res["overflow"].sum() + dropped.sum()
-    return dict(cam=cam, tgt=tgt, depths=depths, valid=valid, conf=conf,
-                overflow=overflow, need=need, total=total,
-                blockmax=blockmax, nbmax=nbmax, m_total=cam.shape[1])
+    return res["overflow"].sum() + dropped.sum()
 
 
 def _select_view_outputs(ctx: ViewContext, v: int, nb: np.ndarray,

@@ -28,7 +28,11 @@ one cold run, then `--warm` runs with the segments shifted by
 best, the lines, every trial's `t_*`, the exactness fields
 (`match_overflow`, `views_rematched_uncapped`, `probe_m_total`,
 `collinearity_overflow`, `views_recollin_exact`, the collinear pairs
-still dropped after the fallback), the kernels' launches in each warm run
+still dropped after the fallback), each warm trial's `warm_stats` (the
+fields `line3d_tpu`'s scripts/stress_exact_profile.py prints a trial:
+every `t_*`, `probe_*`, overflow, re-match and re-derivation count; so
+`25 --scene clutter` is that script's counterpart), the kernels' launches
+in each warm run
 (the wrappers' `LAUNCHES`), `torch.cuda.max_memory_allocated` over the V's
 runs, the process's peak RSS, `gathered_by_stage`, and the sha256 of the
 cold run's TXT; the cold run's stage times; with refinement or BA the
@@ -89,6 +93,15 @@ CLUTTER_SEGMENTS = 2990
 # run's record sizes
 _MEMBER_DATA_FNS = ((refine, "build_cluster_member_data"),
                     (bundle, "build_bundle_member_data"))
+
+
+def stress_fields(stats: dict) -> dict:
+    """The fields of a run's stats that `line3d_tpu`'s
+    scripts/stress_exact_profile.py prints for each warm trial: every
+    `t_*`, `*probe*`, `*overflow*`, `*rematched*` and `*recollin*`."""
+    return {k: v for k, v in stats.items()
+            if k.startswith("t_") or any(w in k for w in (
+                "probe", "overflow", "rematched", "recollin"))}
 
 
 def _sync(dev: torch.device):
@@ -268,7 +281,8 @@ def profile_views(V: int, device, n_warm: int = 3, out: str | None = None,
                txt_sha256=hashlib.sha256(txt).hexdigest(),
                poses_sha256=hashlib.sha256(poses).hexdigest()
                if poses is not None else None,
-               **{k: [] for k in STAGES}, launches=[], warm_ba_rms=[])
+               **{k: [] for k in STAGES}, launches=[], warm_ba_rms=[],
+               warm_stats=[])
     best = None
     for trial in range(n_warm):
         secs, l3d, counts, _ = run_once(cfg, scene, cams,
@@ -278,6 +292,7 @@ def profile_views(V: int, device, n_warm: int = 3, out: str | None = None,
         rec["launches"].append(counts)
         rec["warm_ba_rms"].append([l3d.stats.get("ba_rms_before"),
                                    l3d.stats.get("ba_rms_after")])
+        rec["warm_stats"].append(stress_fields(l3d.stats))
         for k in STAGES:
             rec[k].append(l3d.stats[k])
         if best is None or secs < best[0]:

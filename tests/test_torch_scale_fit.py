@@ -466,9 +466,11 @@ def test_scale_exact_profile_options(monkeypatch):
 @pytest.mark.parametrize("tool,argv", [
     ("refine_bench", ["100"]),
     ("scale_exact_profile", ["8", "--config", "facadeba"]),
-    ("scale_exact_profile", ["8", "--scene", "clutter", "--capped"])])
+    ("scale_exact_profile", ["8", "--scene", "clutter", "--capped"]),
+    ("stress_stage_bench", []), ("quota_bucket_bench", []),
+    ("cli_bench", ["--views", "2", "--format", "nvm"])])
 def test_tools_raise_without_cuda(tool, argv):
-    """Both tools run on the card by default: without CUDA they raise
+    """The tools run on the card by default: without CUDA they raise
     before any work."""
     import importlib
     if torch.cuda.is_available():
