@@ -38,7 +38,7 @@ import torch
 
 from ..config import L3DConfig
 from .demo import make_demo_scene, make_facade_scene
-from .host_stage_scaling import card_line
+from .host_stage_scaling import card_line, require_device
 from .visualize import _draw_segment
 
 
@@ -107,6 +107,45 @@ def render_images(scene, img_dir: str, name_fn, width: int, height: int):
                               height))
 
 
+def bundle_text(scene, cams, prec: int = 9) -> str:
+    """bundle.rd.out (v0.3) of the scene: each view's focal with no
+    distortion, R and t with the loader's sign flips undone
+    (main_bundler.cpp:159-176) at `prec` decimals, then each worldpoint
+    with the views that see it."""
+    wpv = wp_views(scene)
+    lines = ["# Bundle file v0.3", f"{scene.num_views} {len(wpv)}"]
+    for v in range(scene.num_views):
+        R, t = cams.R[v].copy(), cams.t[v].copy()
+        R[1:3] *= -1.0
+        t[1:3] *= -1.0
+        lines.append(f"{cams.K[v][0, 0]:.6f} 0 0")
+        lines += [" ".join(f"{x:.{prec}f}" for x in R[r]) for r in range(3)]
+        lines.append(" ".join(f"{x:.{prec}f}" for x in t))
+    for w in sorted(wpv):
+        lines += ["0 0 0", "128 128 128",
+                  f"{len(wpv[w])}" + "".join(f" {v} 0 0.0 0.0"
+                                             for v in wpv[w])]
+    return "\n".join(lines) + "\n"
+
+
+def nvm_text(scene, cams, name_fn, prec: int = 9) -> str:
+    """scene.nvm (NVM_V3 as main_vsfm.cpp:121-223 parses it): each view's
+    image name `name_fn(v)`, focal, quaternion and center at `prec`
+    decimals, no distortion; then each worldpoint with its views."""
+    wpv = wp_views(scene)
+    lines = ["NVM_V3", "", f"{scene.num_views}"]
+    for v in range(scene.num_views):
+        lines.append(
+            f"{name_fn(v)} {cams.K[v][0, 0]:.6f} "
+            + " ".join(f"{x:.{prec}f}" for x in rot_to_quat(cams.R[v])) + " "
+            + " ".join(f"{x:.{prec}f}" for x in cams.C[v]) + " 0.0 0")
+    lines += ["", f"{len(wpv)}"]
+    for w in sorted(wpv):
+        lines.append(f"0 0 0 128 128 128 {len(wpv[w])}"
+                     + "".join(f" {v} 0 0.0 0.0" for v in wpv[w]))
+    return "\n".join(lines) + "\n"
+
+
 def render_dataset(root: str, num_views: int, width: int, height: int,
                    kind: str = "facade"):
     """A bundler dataset in `root`: visualize/%08d.jpg and bundle.rd.out
@@ -114,47 +153,22 @@ def render_dataset(root: str, num_views: int, width: int, height: int,
     scene, cams = make_scene(kind, num_views, width, height)
     render_images(scene, os.path.join(root, "visualize"),
                   lambda v: f"{v:08d}.jpg", width, height)
-    wpv = wp_views(scene)
-    lines = ["# Bundle file v0.3", f"{num_views} {len(wpv)}"]
-    for v in range(num_views):
-        lines.append(f"{cams.K[v][0, 0]:.6f} 0 0")
-        R = cams.R[v].copy()
-        R[1:3] *= -1.0
-        for r in range(3):
-            lines.append(" ".join(f"{x:.9f}" for x in R[r]))
-        t = cams.t[v].copy()
-        t[1:3] *= -1.0
-        lines.append(" ".join(f"{x:.9f}" for x in t))
-    for w in sorted(wpv):
-        lines.append("0 0 0")
-        lines.append("128 128 128")
-        lines.append(f"{len(wpv[w])}"
-                     + "".join(f" {v} 0 0.0 0.0" for v in wpv[w]))
     with open(os.path.join(root, "bundle.rd.out"), "w") as f:
-        f.write("\n".join(lines) + "\n")
+        f.write(bundle_text(scene, cams))
     return scene
 
 
 def render_nvm_dataset(root: str, num_views: int, width: int, height: int,
                        kind: str = "facade"):
-    """An NVM_V3 dataset in `root`: img_%04d.jpg and scene.nvm as
-    main_vsfm.cpp:121-223 parses it (the script's `render_nvm_dataset`).
-    Returns the scene."""
+    """An NVM_V3 dataset in `root`: img_%04d.jpg and scene.nvm (the
+    script's `render_nvm_dataset`).  Returns the scene."""
     scene, cams = make_scene(kind, num_views, width, height)
-    render_images(scene, root, lambda v: f"img_{v:04d}.jpg", width, height)
-    wpv = wp_views(scene)
-    lines = ["NVM_V3", "", f"{num_views}"]
-    for v in range(num_views):
-        lines.append(
-            f"img_{v:04d}.jpg {cams.K[v][0, 0]:.6f} "
-            + " ".join(f"{x:.9f}" for x in rot_to_quat(cams.R[v])) + " "
-            + " ".join(f"{x:.9f}" for x in cams.C[v]) + " 0.0 0")
-    lines += ["", f"{len(wpv)}"]
-    for w in sorted(wpv):
-        lines.append(f"0 0 0 128 128 128 {len(wpv[w])}"
-                     + "".join(f" {v} 0 0.0 0.0" for v in wpv[w]))
+
+    def name(v):
+        return f"img_{v:04d}.jpg"
+    render_images(scene, root, name, width, height)
     with open(os.path.join(root, "scene.nvm"), "w") as f:
-        f.write("\n".join(lines) + "\n")
+        f.write(nvm_text(scene, cams, name))
     return scene
 
 
@@ -178,11 +192,7 @@ def main(argv=None) -> int:
                     help="the CLI's --device (default: the card; raises "
                     "without CUDA)")
     args = ap.parse_args(argv)
-    if torch.device(args.device).type == "cuda" and \
-            not torch.cuda.is_available():
-        raise RuntimeError("cli_bench: device 'cuda' requested but "
-                           "torch.cuda.is_available() is False (pass "
-                           "--device cpu)")
+    require_device(args.device, "cli_bench")
     from .. import cli
 
     root = args.keep or tempfile.mkdtemp(prefix="cli_bench_")

@@ -193,6 +193,15 @@ def card_line(device: torch.device) -> str | None:
     return out[device.index or 0]
 
 
+def require_device(device, tool: str):
+    """Raise when the card is asked for and there is none."""
+    if torch.device(device).type == "cuda" and \
+            not torch.cuda.is_available():
+        raise RuntimeError(f"{tool}: device 'cuda' requested but "
+                           "torch.cuda.is_available() is False (pass "
+                           "--device cpu)")
+
+
 def run(V: int, device) -> dict:
     """Synthesize the inputs of V views and time each cluster stage on
     them; returns the record `main` prints."""
@@ -245,12 +254,8 @@ def main(argv=None) -> int:
                     help="the device of the device diffusion and the fit "
                     "(default: the card; raises without CUDA)")
     args = ap.parse_args(argv)
-    dev = torch.device(args.device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("host_stage_scaling: device 'cuda' requested but "
-                           "torch.cuda.is_available() is False (pass "
-                           "--device cpu)")
-    print(json.dumps(run(args.views, dev)), flush=True)
+    require_device(args.device, "host_stage_scaling")
+    print(json.dumps(run(args.views, torch.device(args.device))), flush=True)
     return 0
 
 

@@ -2,7 +2,7 @@
 no result.
 
     python3 -m line3d_tpu_torch.utils.quota_bucket_bench [--views 25]
-        [--segments 2990] [--view 0] [--repeats 10] [--device cpu]
+        [--segments 2990] [--repeats 10] [--device cpu]
 
 The port's counterpart of `line3d_tpu`'s scripts/quota_bucket_bench.py (no
 JAX).  The block compaction keeps max(quota, ceil(m_total / B)) matches of
@@ -32,6 +32,7 @@ import numpy as np
 from ..match import pairwise
 from ..parallel import sharded
 from . import stress_stage_bench as ssb
+from .host_stage_scaling import require_device
 
 # the script's (m_total, quota) pairs (scripts/quota_bucket_bench.py:69-72);
 # the first is the reference the lossless pairs are held to
@@ -91,8 +92,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ssb.add_fixture_args(ap)
     args = ap.parse_args(argv)
-    ssb.require_device(args.device, "quota_bucket_bench")
-    fx = ssb.fixture(args.device, args.views, args.segments, args.view)
+    require_device(args.device, "quota_bucket_bench")
+    fx = ssb.fixture(args.device, args.views, args.segments)
     rec = run(fx, args.repeats)
     print(f"card: {rec['card']}", flush=True)
     print(json.dumps(rec), flush=True)

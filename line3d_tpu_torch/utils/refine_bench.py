@@ -41,7 +41,7 @@ import torch
 
 from ..fit import refine
 from ..parallel import multihost
-from .host_stage_scaling import card_line
+from .host_stage_scaling import card_line, require_device
 
 # the cluster count of the JAX script's 1000-view shape
 DEFAULT_CLUSTERS = 173_000
@@ -225,11 +225,7 @@ def main(argv=None) -> int:
                     help="a one-process --out: rank 0 checks the gathered "
                     "result against it bit for bit")
     args = ap.parse_args(argv)
-    if torch.device(args.device).type == "cuda" and \
-            not torch.cuda.is_available():
-        raise RuntimeError("refine_bench: device 'cuda' requested but "
-                           "torch.cuda.is_available() is False (pass "
-                           "--device cpu)")
+    require_device(args.device, "refine_bench")
     multihost.initialize()
     rec = run(args.clusters, args.device, args.host_subset,
               args.out or None, args.expect or None)

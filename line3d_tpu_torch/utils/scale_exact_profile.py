@@ -74,7 +74,7 @@ from ..fit import bundle, refine
 from ..match import collinearity_cuda, pairwise_cuda, scoring_cuda
 from ..parallel import multihost
 from .demo import make_demo_scene, make_facade_scene
-from .host_stage_scaling import card_line
+from .host_stage_scaling import card_line, require_device
 from .time_match_view import FACADE_CONFIGS
 
 # the wrappers' launch counters: (module, counter, name in the record)
@@ -353,11 +353,7 @@ def main(argv=None) -> int:
     ap.add_argument("--capped", action="store_true",
                     help="the capped pass alone (uncapped_fallback=False)")
     args = ap.parse_args(argv)
-    if torch.device(args.device).type == "cuda" and \
-            not torch.cuda.is_available():
-        raise RuntimeError("scale_exact_profile: device 'cuda' requested "
-                           "but torch.cuda.is_available() is False (pass "
-                           "--device cpu)")
+    require_device(args.device, "scale_exact_profile")
     multihost.initialize()
     for V in args.views:
         rec = profile_views(V, args.device, args.warm, args.out or None,

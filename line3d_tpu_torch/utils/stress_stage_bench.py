@@ -1,7 +1,7 @@
 """Per-stage budget of the per-view matching step at the stress shape.
 
     python3 -m line3d_tpu_torch.utils.stress_stage_bench [--views 25]
-        [--segments 2990] [--view 0] [--repeats 10] [--device cpu]
+        [--segments 2990] [--repeats 10] [--device cpu]
 
 The port's counterpart of `line3d_tpu`'s scripts/stress_stage_bench.py (no
 JAX).  On view 0 of the P25 stress scene (`make_demo_scene(25,
@@ -56,7 +56,7 @@ from ..parallel import sharded
 from ..scene import Scene, find_visual_neighbors, \
     view_similarities_from_worldpoints
 from .demo import make_demo_scene
-from .host_stage_scaling import card_line
+from .host_stage_scaling import card_line, require_device
 
 E2E_VIEWS, E2E_SEGMENTS = 25, 2990
 # the script's capacities: the probe's decision at the stress shape
@@ -176,6 +176,32 @@ def step(fx: Fixture, segs_src, caps: tuple | None, upto: str = "E"):
         engine.table_overflow(res, cam)).cpu().numpy()
 
 
+def assembled(fx: Fixture, buf: np.ndarray) -> tuple:
+    """(ViewMatches, best row, median depth) of the view from a stage-E
+    buffer, as `engine.match_views` assembles them."""
+    ctx = engine.ViewContext(fx.scene, fx.cams, fx.config)
+    return engine._assemble_view_outputs(
+        ctx, fx.view, fx.nb, sharded.unpack_selection(buf, fx.S))
+
+
+def engine_mismatch(fx: Fixture, buf: np.ndarray, want: tuple) -> list:
+    """The outputs in which the stage-E buffer `buf` differs from `want`,
+    the view's (ViewMatches, best row, median depth) from
+    `engine.match_views` at the same capacity: [] when the timed step is
+    the entry point's."""
+    vm, row, med = assembled(fx, buf)
+    wvm, wrow, wmed = want
+    bad = [f for f in ("src_seg", "tgt_view", "tgt_seg", "overflow")
+           if not np.array_equal(getattr(vm, f), getattr(wvm, f))]
+    if med != wmed:
+        bad.append("median_depth")
+    if (row is None) != (wrow is None) or row is not None and (
+            row.keys() != wrow.keys()
+            or not all(np.array_equal(row[k], wrow[k]) for k in wrow)):
+        bad.append("best_row")
+    return bad
+
+
 def _launches() -> tuple:
     return (pairwise_cuda.LAUNCHES, scoring_cuda.LAUNCHES,
             scoring_cuda.LAUNCHES_WIDE)
@@ -282,20 +308,10 @@ def exact_caps(fx: Fixture) -> tuple:
     return _planes(fx, fx.segs_src, None)[1]
 
 
-def require_device(device: str, tool: str):
-    """Raise when the card is asked for and there is none."""
-    if torch.device(device).type == "cuda" and \
-            not torch.cuda.is_available():
-        raise RuntimeError(f"{tool}: device 'cuda' requested but "
-                           "torch.cuda.is_available() is False (pass "
-                           "--device cpu)")
-
-
 def add_fixture_args(ap: argparse.ArgumentParser):
     ap.add_argument("--views", type=int, default=E2E_VIEWS)
     ap.add_argument("--segments", type=int, default=E2E_SEGMENTS,
                     help="clutter segments a view")
-    ap.add_argument("--view", type=int, default=0)
     ap.add_argument("--repeats", type=int, default=10)
     ap.add_argument("--device", default="cuda",
                     help="the step's device (default: the card; raises "
@@ -325,7 +341,7 @@ def main(argv=None) -> int:
     add_fixture_args(ap)
     args = ap.parse_args(argv)
     require_device(args.device, "stress_stage_bench")
-    fx = fixture(args.device, args.views, args.segments, args.view)
+    fx = fixture(args.device, args.views, args.segments)
     rec = run(fx, args.repeats)
     print(f"card: {rec['card']}", flush=True)
     print(json.dumps(rec), flush=True)

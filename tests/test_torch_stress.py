@@ -35,7 +35,6 @@ if REPO not in sys.path:
 
 from line3d_tpu_torch.io import bundler as bundler_io, nvm as nvm_io  # noqa
 from line3d_tpu_torch.match import engine  # noqa: E402
-from line3d_tpu_torch.parallel import sharded  # noqa: E402
 from line3d_tpu_torch.utils import cli_bench  # noqa: E402
 from line3d_tpu_torch.utils import quota_bucket_bench as qbb  # noqa: E402
 from line3d_tpu_torch.utils import stress_stage_bench as ssb  # noqa: E402
@@ -111,27 +110,21 @@ def test_fixture_equals_the_jax_script(monkeypatch, tmp_path):
                                    atol=0, err_msg=name)
 
 
-def _assembled(fx, buf):
-    ctx = engine.ViewContext(fx.scene, fx.cams, fx.config)
-    return engine._assemble_view_outputs(
-        ctx, fx.view, fx.nb, sharded.unpack_selection(buf, fx.S))
-
-
 @pytest.mark.parametrize("caps", [None, (ssb.QUOTA, ssb.M_TOTAL)])
 def test_stage_e_is_the_engine_step(small, caps):
     """(2) the bench's whole step gives the selection the pipeline's
     per-view step gives (engine.match_views), at both capacities."""
     fx = small
-    vm, row, med = _assembled(fx, ssb.step(fx, fx.segs_src, caps))
+    buf = ssb.step(fx, fx.segs_src, caps)
+    vm, _, _ = ssb.assembled(fx, buf)
     ctx = engine.ViewContext(fx.scene, fx.cams, fx.config)
-    (wvm, wrow, wmed), = engine.match_views(ctx, {fx.view: fx.nb},
-                                            [fx.view], caps=caps).values()
-    assert len(vm.src_seg) > 0 and med == wmed
-    for f in ("src_seg", "tgt_view", "tgt_seg"):
-        np.testing.assert_array_equal(getattr(vm, f), getattr(wvm, f))
-    assert vm.overflow == wvm.overflow == 0
-    for k in wrow:
-        np.testing.assert_array_equal(row[k], wrow[k])
+    want, = engine.match_views(ctx, {fx.view: fx.nb}, [fx.view],
+                               caps=caps).values()
+    assert len(vm.src_seg) > 0 and vm.overflow == want[0].overflow == 0
+    assert want[1] is not None
+    assert ssb.engine_mismatch(fx, buf, want) == []
+    assert ssb.engine_mismatch(fx, buf, (*want[:2], want[2] + 1.0)) == \
+        ["median_depth"]
 
 
 def test_stress_stage_bench_main_on_cpu(capsys):
