@@ -38,12 +38,15 @@ exits non-zero):
                its weights held to the host's on the same graph.
   8. facade    the 25-view facade scene, exact matching: one cold run and
                three warm runs, with the kernels' launch counts from one
-               warm run, and one run under torch.profiler (the card's busy
-               time and idle share, the device-to-host copies' bytes and
-               milliseconds); two runs with use_sharded_engine=False (host
-               selection), whose TXT must equal the default's byte for
-               byte; then views 0 and 12: K1's planes against its twin,
-               the per-view step re-run on the CPU with the plain twins
+               warm run, and one run under torch.profiler with the
+               recorder on (the device ops that took the most time, the
+               readbacks' synchronisations and bytes by site from the
+               recorder's counters, beside the device-to-host copies the
+               profiler saw); two runs with
+               use_sharded_engine=False (host selection), whose TXT must
+               equal the default's byte for byte; then views 0 and 12:
+               K1's planes against its twin, the per-view step re-run on
+               the CPU with the plain twins
                on the card's K1 planes, its tables, scores and best matches
                compared with the card's, the capacity-probe counters
                held to those counted from the twin's planes, the device
@@ -155,7 +158,7 @@ exits non-zero):
  19. cudatests the `cuda`-marked tests of tests/test_torch_kernels_cuda.py
                on the card, in a process of their own (`python -m pytest
                ... -m cuda --noconftest`): pytest must exit 0 and at least
-               35 must pass (36 on two cards or more).
+               37 must pass (38 on two cards or more).
 
 Each path's kernel launch counts are set to 0 just before it is driven and
 read just after.  The line before last is the card as `nvidia-smi` reports
@@ -997,38 +1000,46 @@ def _counted(run, tag, wide=True):
 
 
 def _profile(run, tag):
-    """One more run under torch.profiler: the card's busy time (the summed
-    durations of its kernels, copies and fills), the run's host seconds,
-    the card's idle share, the device ops that took the most time, and the
-    device-to-host copies (count, bytes, milliseconds).  Returns the
-    copies' totals by kind."""
+    """One more run under torch.profiler with the recorder on: the device
+    ops that took the most time (the program's `l3d.*` annotations left
+    out), the run's readbacks by site from the recorder's counters, and
+    the device-to-host copies the profiler saw beside the recorder's.
+    Returns {"DtoH": {count, bytes}} (the recorder's readbacks) with the
+    profiler's copies under "profiler"."""
     from collections import defaultdict
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    from line3d_tpu_torch import trace
     from line3d_tpu_torch.utils.time_match_view import memcpy_totals
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with trace.recording(), profile(activities=[ProfilerActivity.CPU,
+                                                ProfilerActivity.CUDA]) \
+            as prof:
         (l3d, t) = run()
+        counters = trace.collect()["counters"]
     per_op = defaultdict(float)
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
+        if e.device_type == DeviceType.CUDA and \
+                not e.name.startswith("l3d."):
             per_op[e.name] += e.time_range.elapsed_us() / 1e3
-    busy = sum(per_op.values())
     if not per_op:
         log(f"[{tag}] profiled run {t:.3f} s: the profiler saw no device "
             "events")
-        return {}
     top = sorted(per_op.items(), key=lambda kv: -kv[1])[:8]
-    log(f"[{tag}] profiled run {t:.3f} s (host clock, profiler on): card "
-        f"busy {busy:.1f} ms, idle share {1 - busy / (t * 1e3):.3f}; most "
-        f"device time: " + "; ".join(f"{n[:60]} {ms:.1f} ms"
-                                     for n, ms in top))
+    log(f"[{tag}] profiled run {t:.3f} s (host clock, profiler and recorder "
+        f"on); most device time: " + "; ".join(f"{n[:60]} {ms:.1f} ms"
+                                             for n, ms in top))
+    sites = {k[len("syncs."):]: (v, counters[f"dtoh_bytes.{k[6:]}"])
+             for k, v in counters.items() if k.startswith("syncs.")}
+    d2h = dict(count=l3d.stats["readback_syncs"],
+               bytes=l3d.stats["readback_bytes"])
     copies = memcpy_totals(prof)
-    d2h = copies.get("DtoH", dict(count=0, bytes=0, ms=0.0))
-    log(f"[{tag}] profiled run: device-to-host copies {d2h['count']}, "
-        f"{d2h['bytes']} bytes, {d2h['ms']:.3f} ms (t_match "
-        f"{l3d.stats['t_match']:.3f} s); all copies {copies}")
-    return copies
+    seen = copies.get("DtoH", dict(count=0, bytes=0, ms=0.0))
+    log(f"[{tag}] profiled run: device-to-host readbacks {d2h['count']}, "
+        f"{d2h['bytes']} bytes (t_match {l3d.stats['t_match']:.3f} s); by "
+        f"site (count, bytes) {sites}; the profiler's device-to-host "
+        f"copies {seen['count']}, {seen['bytes']} bytes, "
+        f"{seen['ms']:.3f} ms; all copies {copies}")
+    return {"DtoH": d2h, "profiler": copies}
 
 
 def _facade_runs(cfg, scene, cams, n_warm, tag, profile=False):
@@ -1743,7 +1754,8 @@ def run_cli_dataset(root, scene, cams, gt_lines, tag, extra=()):
     with open(os.path.join(prof, "line3d_trace.json")) as f:
         trace = f.read()
     seen = {k: trace.count(k) for k in ("pair_kernel", "score_kernel",
-                                        "collin_pairs_kernel")}
+                                        "collin_pairs_kernel",
+                                        "l3d.match.depths")}
     log(f"[{tag}] python -m line3d_tpu_torch.cli ... --profile_dir in "
         f"{t_third:.1f} s: the same TXT, trace {len(trace)} bytes, kernel "
         f"names in it: {seen}")
@@ -2687,11 +2699,11 @@ def phase_scale(card):
 
 # phase cudatests: the `cuda`-marked tests run on the card, in a process of
 # their own (tests/conftest.py imports JAX, which that machine lacks; hence
-# --noconftest).  On one card 35 pass and one skips,
+# --noconftest).  On one card 37 pass and one skips,
 # test_pair_valid_kernel_on_second_card, which needs two cards.
 CUDA_TESTS = ["tests/test_torch_kernels_cuda.py", "-q", "-m", "cuda",
               "--noconftest", "-p", "no:cacheprovider"]
-CUDA_TESTS_PASSED = 35            # on one card; one more on two or more
+CUDA_TESTS_PASSED = 37            # on one card; one more on two or more
 CUDA_TESTS_TIMEOUT_S = 600
 
 
@@ -2988,7 +3000,8 @@ def main() -> int:
     log(f"[summary] phase seconds {seconds}; facade exact best "
         f"{fa['best']:.3f} s, with diffusion + refine best {fd['best']:.3f} "
         f"s; facade profiled run device-to-host {d2h.get('bytes')} bytes in "
-        f"{d2h.get('count')} copies, {d2h.get('ms')} ms; host "
+        f"{d2h.get('count')} readbacks (the profiler's "
+        f"{(fa['copies'] or {}).get('profiler', {}).get('DtoH')}); host "
         f"synchronisations of one exact view's step: facade "
         f"{fa['syncs']}, cli {cl['held']['selection_syncs']}; stress warm "
         f"{sp['warm']:.3f} s")

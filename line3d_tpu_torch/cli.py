@@ -20,7 +20,10 @@ Where this module differs from `line3d_tpu.cli`:
     (no first image detected inline to size a warm-up), and there is no
     persistent compilation cache.
   * `--profile_dir` writes a `torch.profiler` Chrome trace
-    (`line3d_trace.json`) of `compute_3d_model` into the directory.
+    (`line3d_trace.json`) of `compute_3d_model` into the directory, with
+    the recorder (`trace.py`) on, so that the program's spans (`l3d.*`:
+    the stages, the match step's parts, every readback's wait) lie on the
+    trace's timeline beside the device activity.
 """
 from __future__ import annotations
 
@@ -94,8 +97,9 @@ def _add_common_flags(ap: argparse.ArgumentParser):
                          "cuda (default; raises without a GPU) or cpu")
     ap.add_argument("--profile_dir", default="",
                     help="capture a torch.profiler Chrome trace of the "
-                         "model computation into this directory "
-                         "(line3d_trace.json; open in a trace viewer)")
+                         "model computation into this directory, with "
+                         "the program's l3d.* spans (line3d_trace.json; "
+                         "open in a trace viewer)")
     ap.add_argument("--debug_ply", type=_parse_bool, default=False,
                     help="additionally dump the 3D line model as an ASCII "
                          "PLY line set (the reference ships this only as "
@@ -138,21 +142,23 @@ def _result_stem(args) -> str:
 @contextlib.contextmanager
 def _trace(profile_dir: str, device):
     """torch.profiler around the block, exported as a Chrome trace into
-    `profile_dir`; no profiler without a directory.  The hand-written
-    kernels appear under their own names (`collin_pairs_kernel`,
-    `pair_kernel`, `score_kernel`) although they are launched through
-    ctypes.  The first trace a process takes, which is what one run of the
-    CLI is, records every device event; later traces of one process were
-    seen to lose their first device events."""
+    `profile_dir`, with the recorder on (`trace.recording`: the program's
+    spans appear as `l3d.<name>`); no profiler without a directory.  The
+    hand-written kernels appear under their own names
+    (`collin_pairs_kernel`, `pair_kernel`, `score_kernel`) although they
+    are launched through ctypes.  The first trace a process takes, which
+    is what one run of the CLI is, records every device event; later
+    traces of one process were seen to lose their first device events."""
     if not profile_dir:
         yield
         return
     from torch.profiler import ProfilerActivity, profile
+    from . import trace
     activities = [ProfilerActivity.CPU]
     if device.type == "cuda":
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(profile_dir, exist_ok=True)
-    with profile(activities=activities) as prof:
+    with trace.recording(), profile(activities=activities) as prof:
         yield
     prof.export_chrome_trace(os.path.join(profile_dir, "line3d_trace.json"))
 

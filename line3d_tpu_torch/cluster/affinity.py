@@ -41,6 +41,7 @@ from ..core.cameras import CameraSet
 from ..match.engine import BestMatches
 from ..native.load import get_lib
 from ..parallel import multihost
+from .. import trace
 
 
 @dataclasses.dataclass
@@ -363,43 +364,51 @@ def _emit_graph(best, src_rows, tgt_rows, w, verbose):
         num_nodes=len(node_rows))
 
 
-def _build_affinity_graph_native(lib, best, allp_packed, row_lookup, key_of,
-                                 collin, cams, config, max_segments,
-                                 verbose):
+def _build_affinity_graph_native(lib, best, matches, key_of, collin, cams,
+                                 config, max_segments, verbose):
     """Native exact-order enumeration (native/affinity_enum.cpp): the
     reference's sequential traversal in C++ with an open-addressing pair
     set — ~20x the numpy stream formulation at 1000-view density.  Output
     is candidate-for-candidate identical to the reference's loop and
     vectorized enumerators (tests/test_affinity.py).  Correspondence pairs
-    stay in their packed a*M + b form end to end."""
+    stay in their packed a*M + b form end to end.  Its three parts are
+    stage spans (`trace.stage`): affinity.pairs (the correspondence pairs,
+    the row lookup and the collinearity CSR), affinity.enumerate and
+    affinity.weights (`_finalize_candidates`)."""
     S = max_segments
     V = cams.num_views
-    M = np.int64(V) * S
-    ptr, coll_j, coll_w = _collin_csr(collin, V, S)
-    coll_cnt = np.diff(ptr)
+    with trace.stage("affinity.pairs"):
+        pk, M = _correspondence_pairs_packed(matches, V, S)
+        row_lookup = np.full(V * S, -1, np.int64)
+        row_lookup[key_of] = np.arange(best.view.size)
+        ptr, coll_j, coll_w = _collin_csr(collin, V, S)
 
-    order = np.ascontiguousarray(np.argsort(key_of, kind="stable"),
-                                 np.int64)
-    key_sorted = np.ascontiguousarray(key_of[order])
-    pk = np.ascontiguousarray(allp_packed)
-    ptr64 = np.ascontiguousarray(ptr, np.int64)
-    # upper bound on candidates/insertions: every correspondence pair, its
-    # target's collinear partners, and every source's collinear partners
-    coll_b = int(lib.affinity_capacity(pk, len(pk), ptr64, M))
-    expected = int(len(pk) + coll_b + coll_cnt[key_sorted].sum())
-    out_src = np.empty(expected, np.int64)
-    out_tgt = np.empty(expected, np.int64)
-    out_kind = np.empty(expected, np.int8)
-    out_cw = np.empty(expected, np.float64)
-    cnt = lib.affinity_enumerate_packed(
-        key_sorted, order, len(order), pk, len(pk),
-        np.ascontiguousarray(row_lookup, np.int64), ptr64,
-        np.ascontiguousarray(coll_j, np.int64),
-        np.ascontiguousarray(coll_w, np.float64),
-        S, M, expected, out_src, out_tgt, out_kind, out_cw)
-    return _finalize_candidates(best, out_src[:cnt], out_tgt[:cnt],
-                                out_kind[:cnt], out_cw[:cnt],
-                                cams, config, verbose)
+    with trace.stage("affinity.enumerate"):
+        coll_cnt = np.diff(ptr)
+        order = np.ascontiguousarray(np.argsort(key_of, kind="stable"),
+                                     np.int64)
+        key_sorted = np.ascontiguousarray(key_of[order])
+        pk = np.ascontiguousarray(pk)
+        ptr64 = np.ascontiguousarray(ptr, np.int64)
+        # upper bound on candidates/insertions: every correspondence pair,
+        # its target's collinear partners, and every source's collinear
+        # partners
+        coll_b = int(lib.affinity_capacity(pk, len(pk), ptr64, M))
+        expected = int(len(pk) + coll_b + coll_cnt[key_sorted].sum())
+        out_src = np.empty(expected, np.int64)
+        out_tgt = np.empty(expected, np.int64)
+        out_kind = np.empty(expected, np.int8)
+        out_cw = np.empty(expected, np.float64)
+        cnt = lib.affinity_enumerate_packed(
+            key_sorted, order, len(order), pk, len(pk),
+            np.ascontiguousarray(row_lookup, np.int64), ptr64,
+            np.ascontiguousarray(coll_j, np.int64),
+            np.ascontiguousarray(coll_w, np.float64),
+            S, M, expected, out_src, out_tgt, out_kind, out_cw)
+    with trace.stage("affinity.weights"):
+        return _finalize_candidates(best, out_src[:cnt], out_tgt[:cnt],
+                                    out_kind[:cnt], out_cw[:cnt],
+                                    cams, config, verbose)
 
 
 def _correspondence_pairs_packed(matches: list, num_views: int,
@@ -437,18 +446,13 @@ def build_affinity_graph(best: BestMatches, matches: list,
                          config: L3DConfig, max_segments: int,
                          verbose: bool = False) -> AffinityGraph:
     S = max_segments
-    B = best.view.size
-
     key_of = best.view.astype(np.int64) * S + best.seg.astype(np.int64)
 
     has_collin = collin is not None and any(len(c) for c in collin)
     if has_collin:
-        pk, M = _correspondence_pairs_packed(matches, cams.num_views, S)
-        row_lookup = np.full(cams.num_views * S, -1, np.int64)
-        row_lookup[key_of] = np.arange(B)
         return _build_affinity_graph_native(
-            get_lib(), best, pk, row_lookup, key_of, collin, cams, config,
-            S, verbose)
+            get_lib(), best, matches, key_of, collin, cams, config, S,
+            verbose)
 
     adj = potential_correspondence_lists(matches, cams.num_views, S)
     row_of = {int(k): r for r, k in enumerate(key_of)}

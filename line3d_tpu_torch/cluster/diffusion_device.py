@@ -41,6 +41,7 @@ import numpy as np
 import torch
 
 from ..parallel import multihost
+from .. import trace
 
 
 @dataclass
@@ -96,7 +97,7 @@ class _PairSums:
         self.K = n.numel()
         self.n, self.index, self.sentinel = n, index, sentinel
         self.classes = []
-        n_host = n.cpu().numpy()
+        n_host = trace.readback(n, "diffusion.classes")
         top = int(n_host.max(initial=0))
         L = 1
         while top and L // 2 < top:
@@ -253,7 +254,8 @@ def _diffuse(edges_i, edges_j, edges_w, num_nodes, iterations, eps, device,
                 (pv[lo:hi] * d).clamp_min(eps))[order_col]
     # min-symmetrize (performDiffusion, line3D.cc:1264-1299)
     w_sym = torch.minimum(pv, pv[order_col])
-    return p.ri, p.rj, w_sym.cpu().numpy().astype(np.float64)
+    return p.ri, p.rj, trace.readback(w_sym, "diffusion.weights") \
+        .astype(np.float64)
 
 
 def diffuse_reference_device(edges_i, edges_j, edges_w, num_nodes,

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from ..native import load as native_load
+from .. import trace
 
 
 def fh_cluster_parallel(edges_i: np.ndarray, edges_j: np.ndarray,
@@ -116,7 +117,7 @@ def fh_cluster_parallel(edges_i: np.ndarray, edges_j: np.ndarray,
         # reciprocal, which is not the correctly rounded quotient
         thr[dst] = ew[e_r[mutual]] + \
             c_t / size[dst].clamp_min(1).to(torch.float64)
-    return labels.cpu().numpy()
+    return trace.readback(labels, "fh.labels")
     order = np.argsort(edges_w, kind="stable")
     ei = np.asarray(edges_i, np.int64)[order]
     ej = np.asarray(edges_j, np.int64)[order]
@@ -200,13 +201,14 @@ def fh_cluster(edges_i: np.ndarray, edges_j: np.ndarray,
     """[num_nodes] cluster labels (representative ids, not compacted),
     from the native union-find."""
     lib = native_load.get_lib()
-    edges_i, edges_j, edges_w = _drop_reverse_duplicates(
-        edges_i, edges_j, edges_w)
-    order = np.argsort(edges_w, kind="stable").astype(np.int64)
+    with trace.span("fh.sort"):
+        edges_i, edges_j, edges_w = _drop_reverse_duplicates(
+            edges_i, edges_j, edges_w)
+        order = np.argsort(edges_w, kind="stable").astype(np.int64)
+        ei = np.ascontiguousarray(edges_i[order], np.int64)
+        ej = np.ascontiguousarray(edges_j[order], np.int64)
+        ew = np.ascontiguousarray(edges_w[order], np.float64)
     labels = np.zeros(num_nodes, np.int64)
-    lib.fh_cluster(
-        np.ascontiguousarray(edges_i[order], np.int64),
-        np.ascontiguousarray(edges_j[order], np.int64),
-        np.ascontiguousarray(edges_w[order], np.float64),
-        len(order), num_nodes, float(c), labels)
+    with trace.span("fh.union"):
+        lib.fh_cluster(ei, ej, ew, len(order), num_nodes, float(c), labels)
     return labels

@@ -41,6 +41,7 @@ import numpy as np
 import torch
 
 from ..parallel import multihost
+from .. import trace
 from . import refine
 from .refine import residuals_t, huber_weights, orthobasis_t
 
@@ -155,7 +156,7 @@ def _bundle(P0, d, K, R0, t0, mc, mv, q1, q2, counts, n_res: float,
     V = K.shape[0]
     Q = 6 * V
     f32, dev = P0.dtype, P0.device
-    plan = _plan(counts, mv.cpu().numpy(), V, block, dev)
+    plan = _plan(counts, trace.readback(mv, "bundle.plan"), V, block, dev)
     n_res = torch.tensor(n_res, dtype=f32, device=dev)
     eyeQ = torch.eye(Q, dtype=f32, device=dev)
     # the first camera's 6 DoF are pinned (gauge); rows/cols of the pinned
@@ -343,9 +344,10 @@ def bundle_adjust(P0, d, K, R, t, vidx, p1, p2, mask, iterations: int = 5,
                   damping=float(damping))
     P0f, df, Rf, tf, rms_b, rms_a = out
     lines = multihost.allgather_tensor(torch.cat([P0f, df], dim=1))
-    lines = lines.cpu().numpy().astype(np.float64)
-    Rf, tf, rms_b, rms_a = (x.cpu().numpy().astype(np.float64)
-                            for x in (Rf, tf, rms_b, rms_a))
+    lines = trace.readback(lines, "bundle.lines").astype(np.float64)
+    Rf, tf, rms_b, rms_a = (
+        trace.readback(x, "bundle.poses").astype(np.float64)
+        for x in (Rf, tf, rms_b, rms_a))
     return lines[:, 0:3], lines[:, 3:6], Rf, tf, float(rms_b), float(rms_a)
 
 

@@ -31,6 +31,7 @@ from ..core.conditioning import SceneTransform
 from ..cluster.affinity import AffinityGraph
 from ..match.engine import BestMatches
 from ..native import load as native_load
+from .. import trace
 
 
 @dataclasses.dataclass
@@ -131,9 +132,10 @@ def process_clusters(graph: AffinityGraph, labels: np.ndarray,
                             cid_e)
         mviews = np.split(views_m, ptr[1:-1])
         msegs = np.split(segs_m, ptr[1:-1])
-        mean, dirv = _refine(P0, d0, mviews, msegs, transform, config,
-                             scene_segments, P_cond, cameras, device,
-                             out_info, verbose)
+        with trace.span("fit.refine"):
+            mean, dirv = _refine(P0, d0, mviews, msegs, transform, config,
+                                 scene_segments, P_cond, cameras, device,
+                                 out_info, verbose)
         # snap member endpoints onto the refined line before sweeping
         de = dirv[cid_e]
         pts = mean[cid_e] + np.einsum("ij,ij->i", pts - mean[cid_e],

@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from ..parallel import multihost
+from .. import trace
 
 # clusters per block of the device refinement and of the bundle
 # adjustment's line blocks (the unit of work a rank owns) are a multiple of
@@ -271,7 +272,8 @@ def refine_lines_device(P0, d, Pm, p1, p2, mask, iterations: int = 5,
             t(mask, sl, torch.bool), iterations=int(iterations),
             huber_delta=float(huber_delta), damping=float(damping))
         outs.append(torch.cat([P0b, db, rbb[:, None], rab[:, None]], dim=1))
-    out = multihost.allgather_tensor(torch.cat(outs)).cpu().numpy()
+    out = trace.readback(multihost.allgather_tensor(torch.cat(outs)),
+                         "refine.lines")
     out = out.astype(np.float64)
     return out[:, 0:3], out[:, 3:6], out[:, 6], out[:, 7]
 

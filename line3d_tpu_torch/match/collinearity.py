@@ -25,6 +25,7 @@ from .collinearity_cuda import block_quota, collin_keep_plain, \
     collin_pairs_cuda, keep_threshold_sq
 from .pairwise import compact_rows_blockq
 from ..parallel import multihost
+from .. import trace
 
 
 def _two_sigma_sq(coll_sigma_sq, like):
@@ -274,9 +275,9 @@ def apply_collinearity_exact_fallback(coll: CollinMaps, segments, masks,
     fv, fi, fj, fw = [], [], [], []
     prev = 0
     for v in views.tolist():
-        m = collinearity_matrix(segments[v], masks[v], sig2,
-                                aff_threshold=float(aff_threshold)) \
-            .cpu().numpy()
+        m = trace.readback(collinearity_matrix(
+            segments[v], masks[v], sig2,
+            aff_threshold=float(aff_threshold)), "collin.exact")
         ii, jj = np.nonzero(m > 0.0)          # row-major == (i, j) ascending
         d: dict = {}
         for i, j in zip(ii.tolist(), jj.tolist()):
@@ -320,10 +321,12 @@ def collinearity_maps_fast(segments, masks, coll_sigma: float,
     V, S = masks.shape
     lo, hi = multihost.local_range(V)
     if hi > lo:
-        parts = [x.cpu().numpy() for x in collinearity_compact_all(
-            segments[lo:hi], masks[lo:hi],
-            np.float32(coll_sigma * coll_sigma), quota=quota,
-            pairs_per_seg=pairs_per_seg, aff_threshold=aff_threshold)]
+        parts = [trace.readback(x, "collin.export")
+                 for x in collinearity_compact_all(
+                     segments[lo:hi], masks[lo:hi],
+                     np.float32(coll_sigma * coll_sigma), quota=quota,
+                     pairs_per_seg=pairs_per_seg,
+                     aff_threshold=aff_threshold)]
     else:
         C = pairs_capacity(S, quota, pairs_per_seg)
         parts = [np.zeros((0, C), np.int32), np.zeros((0, C), np.float32),

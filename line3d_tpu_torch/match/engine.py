@@ -45,8 +45,9 @@ import torch
 
 from ..config import L3DConfig
 from ..core.cameras import CameraSet
-from ..scene import Scene
+from ..scene import Scene, upload
 from ..parallel import multihost, sharded
+from .. import trace
 from . import pairwise
 from .pairwise_cuda import pair_valid
 from .scoring_cuda import score
@@ -145,7 +146,7 @@ class ViewContext:
         self.device = scene.device
 
         def t(name):
-            return torch.as_tensor(cameras.f32(name), device=self.device)
+            return upload(cameras.f32(name), self.device)
 
         self.RtKinv32 = t("RtKinv")
         self.C32 = t("C")
@@ -157,20 +158,10 @@ class ViewContext:
         neighbors `nb`, on the device."""
         F = self.cameras.fundamentals_for_pairs(
             np.stack([np.full(len(nb), v), nb], axis=1)).astype(np.float32)
-        idx = self.upload(np.asarray(nb, np.int64))
+        idx = upload(np.asarray(nb, np.int64), self.device)
         return (self.scene.segments_t[idx], self.scene.seg_mask_t[idx],
-                self.upload(F), self.RtKinv32[idx], self.C32[idx],
+                upload(F, self.device), self.RtKinv32[idx], self.C32[idx],
                 self.P32[idx])
-
-    def upload(self, x: np.ndarray) -> torch.Tensor:
-        """A host array on the device without a synchronisation: a copy
-        from pageable memory waits for the stream, so on CUDA it is staged
-        in pinned memory (held by the allocator until the copy is done)
-        and copied asynchronously."""
-        t = torch.from_numpy(np.ascontiguousarray(x))
-        if self.device.type != "cuda":
-            return t.to(self.device)
-        return t.pin_memory().to(self.device, non_blocking=True)
 
 
 def _pow2(n: int) -> int:
@@ -187,6 +178,7 @@ def match_view(ctx: ViewContext, v: int, nb: np.ndarray,
     device, so that reading it costs no synchronisation here), and ints
     m_total and the probe counters need, total, blockmax and nbmax."""
     cfg = ctx.config
+    dev = ctx.device
     segs_nb, mask_nb, F_nb, RtKinv_nb, C_nb, P_nb = ctx.neighbor_arrays(v, nb)
     segs_src = ctx.scene.segments_t[v]
     mask_src = ctx.scene.seg_mask_t[v]
@@ -195,29 +187,35 @@ def match_view(ctx: ViewContext, v: int, nb: np.ndarray,
 
     # K1 against all neighbors; the counts are the view's exact capacity
     # (the reference's unbounded list length, cudawrapper.cu:923-944)
-    valid_planes = pair_valid(segs_src, mask_src, segs_nb, mask_nb, F_nb,
-                              RtKinv_src, RtKinv_nb, C_src, C_nb,
-                              cfg.min_overlap_lower, cfg.min_overlap_upper)
-    need, total, blockmax, nbmax = plane_counters(valid_planes)
+    with trace.span("match.k1", dev):
+        valid_planes = pair_valid(segs_src, mask_src, segs_nb, mask_nb,
+                                  F_nb, RtKinv_src, RtKinv_nb, C_src, C_nb,
+                                  cfg.min_overlap_lower,
+                                  cfg.min_overlap_upper)
+        need, total, blockmax, nbmax = plane_counters(valid_planes)
     quota, m_total, per_nb_cap = capacities(need, nbmax, N, S, caps)
 
-    res = pairwise.match_view_against_neighbors(
-        segs_src, mask_src, RtKinv_src, C_src, segs_nb, mask_nb, F_nb,
-        RtKinv_nb, C_nb, quota=quota, min_capacity=m_total,
-        valid=valid_planes, per_nb_cap=per_nb_cap)
-    cam, tgt, valid = pairwise.merge_neighbor_tables(res, m_total, S)
-    tcoords = pairwise.gather_target_coords(segs_nb, cam, tgt)
-    depths = pairwise.depths_for_matches(
-        segs_src, segs_nb, cam, tgt, valid, F_nb, RtKinv_src, RtKinv_nb,
-        C_src, C_nb, tcoords=tcoords)
-    conf = score(segs_src, RtKinv_src, C_src, cam, tgt, depths, valid, P_nb,
-                 segs_nb, float(np.float32(cfg.sigma_p)),
-                 float(np.float32(cfg.sigma_a)),
-                 float(np.float32(ctx.spatial_ks[v])),
-                 support_threshold=float(cfg.support_threshold),
-                 tcoords=tcoords)
+    with trace.span("match.compact", dev):
+        res = pairwise.match_view_against_neighbors(
+            segs_src, mask_src, RtKinv_src, C_src, segs_nb, mask_nb, F_nb,
+            RtKinv_nb, C_nb, quota=quota, min_capacity=m_total,
+            valid=valid_planes, per_nb_cap=per_nb_cap)
+        cam, tgt, valid = pairwise.merge_neighbor_tables(res, m_total, S)
+        overflow = table_overflow(res, cam)
+    with trace.span("match.depths", dev):
+        tcoords = pairwise.gather_target_coords(segs_nb, cam, tgt)
+        depths = pairwise.depths_for_matches(
+            segs_src, segs_nb, cam, tgt, valid, F_nb, RtKinv_src, RtKinv_nb,
+            C_src, C_nb, tcoords=tcoords)
+    with trace.span("match.score", dev):
+        conf = score(segs_src, RtKinv_src, C_src, cam, tgt, depths, valid,
+                     P_nb, segs_nb, float(np.float32(cfg.sigma_p)),
+                     float(np.float32(cfg.sigma_a)),
+                     float(np.float32(ctx.spatial_ks[v])),
+                     support_threshold=float(cfg.support_threshold),
+                     tcoords=tcoords)
     return dict(cam=cam, tgt=tgt, depths=depths, valid=valid, conf=conf,
-                overflow=table_overflow(res, cam), need=need, total=total,
+                overflow=overflow, need=need, total=total,
                 blockmax=blockmax, nbmax=nbmax, m_total=cam.shape[1])
 
 
@@ -229,8 +227,9 @@ def plane_counters(valid_planes) -> list:
     blk = pairwise.block_size(S)
     block_counts = valid_planes.reshape(N, S, S // blk, blk).sum(dim=3)
     counts = block_counts.sum(dim=2)                 # [N, S]
-    return torch.stack([counts.sum(dim=0).max(), counts.sum(),
-                        block_counts.max(), counts.max()]).tolist()
+    return trace.readback(torch.stack([
+        counts.sum(dim=0).max(), counts.sum(), block_counts.max(),
+        counts.max()]), "match.counters").tolist()
 
 
 def capacities(need: int, nbmax: int, N: int, S: int,
@@ -358,12 +357,12 @@ def match_views(ctx: ViewContext, neighbors, views,
     selection runs where the tables live (`parallel.sharded.
     device_select`) and one int32 buffer of O(S + verified) values crosses
     to the host: an exact view synchronises three times (the probe
-    counters, the export's masked_select, the buffer's copy), and the
-    ViewMatches holds identities only.  Each process matches the views of
-    its range (`multihost.local_range`; all of them in a single process)
-    on its own card, the selection buffers and counters are all-gathered,
-    and every rank assembles every view in view order, so all ranks hold
-    the single-process result.
+    counters, the export's count, the buffer's copy; each a
+    `trace.readback`), and the ViewMatches holds identities only.  Each
+    process matches the views of its range (`multihost.local_range`; all
+    of them in a single process) on its own card, the selection buffers
+    and counters are all-gathered, and every rank assembles every view in
+    view order, so all ranks hold the single-process result.
 
     Without it the five tables are copied to the host and
     `_select_view_outputs` selects there.  Under N > 1 that would gather
@@ -391,34 +390,43 @@ def match_views(ctx: ViewContext, neighbors, views,
         if tables is not None:
             tables[v] = table
         if device_selection:
-            buf = sharded.device_select(
-                *table.values(), ctx.config.confidence_threshold,
-                len(nb[v]), o["overflow"]).cpu().numpy()
+            with trace.span("match.select", ctx.device):
+                sel = sharded.device_select(
+                    *table.values(), ctx.config.confidence_threshold,
+                    len(nb[v]), o["overflow"])
+            buf = trace.readback(sel, "match.selection")
             heads.append([v, len(buf)] + [o[k] for k in _COUNTERS])
             bufs.append(buf)
             continue
-        raw = {k: x.cpu().numpy() for k, x in table.items()}
+        raw = {k: trace.readback(x, "match.tables")
+               for k, x in table.items()}
         vm, best_row, med = _select_view_outputs(
             ctx, v, nb[v], raw["cam"], raw["tgt"], raw["depths"],
-            raw["valid"], raw["conf"], int(o["overflow"]), verbose=verbose)
+            raw["valid"], raw["conf"],
+            int(trace.readback(o["overflow"], "match.overflow")),
+            verbose=verbose)
         _check_and_count(vm, v, caps, o)
         out[v] = (vm, best_row, med)
     if not device_selection:
         return out
-    heads = np.concatenate(multihost.allgather_array(
-        np.asarray(heads, np.int64).reshape(-1, 2 + len(_COUNTERS))))
-    flat = np.concatenate(multihost.allgather_array(
-        np.concatenate(bufs) if bufs else np.zeros(0, np.int32)))
+    with trace.span("match.gather"):
+        heads = np.concatenate(multihost.allgather_array(
+            np.asarray(heads, np.int64).reshape(-1, 2 + len(_COUNTERS))))
+        flat = np.concatenate(multihost.allgather_array(
+            np.concatenate(bufs) if bufs else np.zeros(0, np.int32)))
     if [int(v) for v in heads[:, 0]] != views:
         raise RuntimeError(f"gathered views {heads[:, 0].tolist()}, "
                            f"expected {views}")
-    for row, end in zip(heads.tolist(), np.cumsum(heads[:, 1]).tolist()):
-        v, n = row[0], row[1]
-        vm, best_row, med = _assemble_view_outputs(
-            ctx, v, nb[v], sharded.unpack_selection(
-                flat[end - n:end], ctx.scene.max_segments), verbose=verbose)
-        _check_and_count(vm, v, caps, dict(zip(_COUNTERS, row[2:])))
-        out[v] = (vm, best_row, med)
+    with trace.span("match.assemble"):
+        for row, end in zip(heads.tolist(),
+                            np.cumsum(heads[:, 1]).tolist()):
+            v, n = row[0], row[1]
+            vm, best_row, med = _assemble_view_outputs(
+                ctx, v, nb[v], sharded.unpack_selection(
+                    flat[end - n:end], ctx.scene.max_segments),
+                verbose=verbose)
+            _check_and_count(vm, v, caps, dict(zip(_COUNTERS, row[2:])))
+            out[v] = (vm, best_row, med)
     return out
 
 

@@ -51,6 +51,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from .. import trace
+
 # payload bytes this process received from the other ranks through
 # `allgather_array` (its own share and the padding not counted)
 GATHERED_BYTES = 0
@@ -144,14 +146,15 @@ def allgather_array(x: np.ndarray) -> list:
     if n == 1:
         return [x]
     raw = x.reshape(-1).view(np.uint8)
-    size = torch.tensor([raw.size], dtype=torch.int64)
-    sizes = [torch.empty_like(size) for _ in range(n)]
-    dist.all_gather(sizes, size)
-    sizes = [int(s) for s in sizes]
-    buf = torch.zeros(max(max(sizes), 1), dtype=torch.uint8)
-    buf[:raw.size] = torch.from_numpy(raw)
-    outs = [torch.empty_like(buf) for _ in range(n)]
-    dist.all_gather(outs, buf)
+    with trace.span("gather"):
+        size = torch.tensor([raw.size], dtype=torch.int64)
+        sizes = [torch.empty_like(size) for _ in range(n)]
+        dist.all_gather(sizes, size)
+        sizes = [int(s) for s in sizes]
+        buf = torch.zeros(max(max(sizes), 1), dtype=torch.uint8)
+        buf[:raw.size] = torch.from_numpy(raw)
+        outs = [torch.empty_like(buf) for _ in range(n)]
+        dist.all_gather(outs, buf)
     me = process_index()
     GATHERED_BYTES += sum(s for r, s in enumerate(sizes) if r != me)
     return [o.numpy()[:s].view(x.dtype).reshape((-1,) + x.shape[1:])
@@ -191,7 +194,7 @@ def allgather_tensor(x: torch.Tensor) -> torch.Tensor:
     `x` itself: no copy, no trip through the host."""
     if process_count() == 1:
         return x
-    parts = allgather_array(x.detach().cpu().numpy())
+    parts = allgather_array(trace.readback(x.detach(), "gather"))
     return torch.from_numpy(np.concatenate(parts)).to(x.device)
 
 

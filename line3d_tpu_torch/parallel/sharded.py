@@ -18,6 +18,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import trace
+
 
 def export_bits(max_segments: int, n_slots: int):
     """Bit layout of the packed verified-match export word.
@@ -80,9 +82,8 @@ def device_select(cam, tgt, depths, valid, conf, conf_t: float,
     Returns one int32 buffer [6 S + 4 + n_verified]: best_cam, best_tgt,
     best_has, the bits of best_conf, best d1, best d2 ([S] each); the bits
     of the median, median_has, n_verified, overflow; the packed export
-    (`unpack_selection` reads it).  Nothing here reads a value back to the
-    host; the one host synchronisation is masked_select's, which needs the
-    kept count to size its output.
+    (`unpack_selection` reads it).  The one host synchronisation is the
+    kept count's readback (`trace.readback`), which sizes the export.
     """
     S = cam.shape[0]
     dev = cam.device
@@ -111,11 +112,14 @@ def device_select(cam, tgt, depths, valid, conf, conf_t: float,
     sbits, cbits = export_bits(S, n_slots)
     src_plane = torch.arange(S, dtype=i32, device=dev)[:, None]
     packed_plane = (src_plane << (cbits + sbits)) | (cam << sbits) | tgt
-    exp_packed = torch.masked_select(packed_plane, keep)
+    n_keep = keep.sum(dtype=i32)
+    n = int(trace.readback(n_keep, "match.count"))
+    at = torch.nonzero_static(keep.reshape(-1), size=n)[:, 0]
+    exp_packed = packed_plane.reshape(-1)[at]
 
     floats = torch.stack([best_conf, best_d[:, 0], best_d[:, 1]])
     scalars = torch.stack([
-        median.view(i32)[0], (nh > 0).to(i32), keep.sum().to(i32),
+        median.view(i32)[0], (nh > 0).to(i32), n_keep,
         torch.as_tensor(overflow, device=dev).to(i32)])
     return torch.cat([best_cam.to(i32), best_tgt.to(i32), best_has.to(i32),
                       floats.view(i32).reshape(-1), scalars,

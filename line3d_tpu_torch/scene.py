@@ -47,10 +47,9 @@ class Scene:
     def __post_init__(self):
         # under N ranks a bare "cuda" is this rank's card
         self.device = multihost.resolve_device(self.device)
-        self.segments_t = torch.as_tensor(
-            np.asarray(self.segments, np.float32), device=self.device)
-        self.seg_mask_t = torch.as_tensor(
-            np.asarray(self.seg_mask, bool), device=self.device)
+        self.segments_t = upload(np.asarray(self.segments, np.float32),
+                                 self.device)
+        self.seg_mask_t = upload(np.asarray(self.seg_mask, bool), self.device)
 
     @property
     def num_views(self) -> int:
@@ -84,6 +83,17 @@ class Scene:
         return Scene(segments=segs, seg_mask=mask, seg_count=counts,
                      cameras=cameras, wp_lists=wp_lists, collin=collin,
                      config=config, device=device)
+
+
+def upload(x: np.ndarray, device) -> torch.Tensor:
+    """A host array on `device` without a synchronisation: a copy from
+    pageable memory waits for the stream, so on CUDA it is staged in pinned
+    memory (held by the allocator until the copy is done) and copied
+    asynchronously."""
+    t = torch.from_numpy(np.ascontiguousarray(x))
+    if torch.device(device).type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
 
 
 # ----------------------------------------------------------------------

@@ -194,6 +194,11 @@ def test_cli_bundler_end_to_end(datasets, capsys, tmp_path):
     assert open(txt_t[0]).read() == first
     assert "detect=0.0" in capsys.readouterr().out
     assert os.path.getsize(os.path.join(prof, "line3d_trace.json")) > 1000
+    # with the program's spans on its timeline
+    with open(os.path.join(prof, "line3d_trace.json")) as f:
+        chrome = f.read()
+    for name in ("l3d.model", "l3d.matching", "l3d.match.k1"):
+        assert f'"{name}"' in chrome, name
     assert os.path.exists(os.path.join(root_t, "Line3D", STEM + ".ply"))
 
 

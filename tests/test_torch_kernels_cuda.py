@@ -20,8 +20,14 @@ peak.CHAIN_RTOL of the twin's.  Device selection (parallel/sharded.py):
 the card's buffer equal to the CPU's, and equal matches to the host
 selection's, bit for bit.  Device diffusion: tests/test_cluster.py's
 rtol 2e-4 / atol 1e-7 against the float64 host; device refine:
-tests/test_refine.py's criteria against the host."""
+tests/test_refine.py's criteria against the host.  The recorder
+(trace.py): on one exact model of the 25-view facade and clutter scenes,
+its synchronisations and device-to-host bytes equal to the sync debug
+mode's count and the profiler's copies, exactly."""
+import json
 import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -627,3 +633,22 @@ def test_device_selection_on_the_card_equals_host_selection(dev):
     syncs = [w for w in seen
              if "called a synchronizing CUDA operation" in str(w.message)]
     assert 1 <= len(syncs) <= 3, [str(w.message) for w in syncs]
+
+
+@pytest.mark.parametrize("scene", ["facade", "clutter"])
+def test_the_recorder_counts_every_sync_and_copy(dev, scene):
+    """One exact model of the 25-view facade or clutter scene
+    (`utils/trace_check.py`, in a process of its own: a process's first
+    profiler trace keeps every device event): the recorder's
+    synchronisations (`trace.readback`) equal those PyTorch's sync debug
+    mode sees, and its device-to-host bytes the profiler's device-to-host
+    copy bytes, so a synchronisation or copy outside `trace.readback`
+    fails here."""
+    proc = subprocess.run(
+        [sys.executable, "-m", "line3d_tpu_torch.utils.trace_check", scene],
+        cwd=os.path.dirname(HERE), capture_output=True, text=True,
+        timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert got["syncs_recorder"] == got["syncs_debug"] > 0, got
+    assert got["dtoh_bytes_recorder"] == got["dtoh_bytes_profiler"] > 0, got

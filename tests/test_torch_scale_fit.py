@@ -468,7 +468,8 @@ def test_scale_exact_profile_options(monkeypatch):
     ("scale_exact_profile", ["8", "--config", "facadeba"]),
     ("scale_exact_profile", ["8", "--scene", "clutter", "--capped"]),
     ("stress_stage_bench", []), ("quota_bucket_bench", []),
-    ("cli_bench", ["--views", "2", "--format", "nvm"])])
+    ("cli_bench", ["--views", "2", "--format", "nvm"]),
+    ("trace_check", ["facade", "--views", "4"])])
 def test_tools_raise_without_cuda(tool, argv):
     """The tools run on the card by default: without CUDA they raise
     before any work."""
