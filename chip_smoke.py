@@ -20,8 +20,12 @@ exits non-zero):
                where 2 sigma^2 is no power of two), and the scoring kernel
                at M=256 and
                M=1024 (with the dense walk's pair tests and the spatial
-               gate's survivors); errors,
-               CUDA-event times and each kernel's bound.
+               gate's survivors); then the affinity stage's enumeration
+               (csrc/affinity_enum.cu) on the inputs of one exact facade
+               model, its candidate stream held to the native walk's
+               element for element; errors, CUDA-event times (the
+               enumeration's call and its walk by host clock) and each
+               kernel's bound.
   4. validate  K5 (dense depth planes) through `pair_dense`, the port's
                counterpart of scripts/tpu_validate.py's phase 2: the house
                pair at S=384 and facade view 0 x 10 neighbors, held against
@@ -158,12 +162,15 @@ exits non-zero):
  19. cudatests the `cuda`-marked tests of tests/test_torch_kernels_cuda.py
                on the card, in a process of their own (`python -m pytest
                ... -m cuda --noconftest`): pytest must exit 0 and at least
-               37 must pass (38 on two cards or more).
+               46 must pass (47 on two cards or more).
 
 Each path's kernel launch counts are set to 0 just before it is driven and
-read just after.  The line before last is the card as `nvidia-smi` reports
-it, the last line the result object.  The script imports no JAX and nothing
-of `line3d_tpu`.
+read just after; every counted model must run the affinity enumeration
+once on its card (four launches), and where a path's kernels are held
+against their twins at its shapes, that run's candidate stream is held to
+the native walk's on the same inputs.  The line before last is the card as
+`nvidia-smi` reports it, the last line the result object.  The script
+imports no JAX and nothing of `line3d_tpu`.
 """
 from __future__ import annotations
 
@@ -239,6 +246,13 @@ K5_SRC_OPS, K5_SRC_NB_OPS, K5_TGT_OPS = 10, 10, 20
 # exp or acos many), so an operations bound is a floor about 2x below what
 # they can reach.
 PEAK_F32, PEAK_BYTES = 67e12, 3.35e12
+# the host link's rate in one direction (PCIe 5.0 x16: 32 GT/s a lane,
+# 128b/130b), the denominator of the affinity enumeration's copies
+PEAK_LINK = 63e9
+# the affinity enumeration's kernel launches in one model whose stream is
+# not empty (`affinity_cuda.LAUNCHES`: prep, pass 1, pass 2 counting and
+# writing)
+AFFINITY_ENUM_LAUNCHES = 4
 # K4's weights against its twin: the same operations in the same order,
 # so equal bits are expected; any weight that differs is counted and must
 # stay within this
@@ -570,7 +584,51 @@ def phase_kernels():
                                ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                                bound_by=b_by, old_prep_ms=old_prep_ms,
                                pair_tests_dense=dense, gate_pass=n_pass)
+
+    out["affinity_enum"] = _kernel_affinity_enum()
     return out
+
+
+def _kernel_affinity_enum(reps: int = 3):
+    """The affinity enumeration (csrc/affinity_enum.cu) on the inputs of
+    one counted exact model of the 25-view facade on the card: its stream
+    held to the native walk's (_hold_enum), the card call (the inputs'
+    upload, four launches, the two readbacks) timed by host clock over
+    `reps` calls, and its bound: the larger of its least device bytes (the
+    inputs read once, the stream written once) over the memory rate and
+    its bytes over the host link (the inputs up, the stream down) over the
+    link's rate.  No floating-point operation is counted: a weight is
+    copied, and every other step is an integer lookup."""
+    from line3d_tpu_torch import Line3D, L3DConfig
+    from line3d_tpu_torch.cluster import affinity, affinity_cuda as ka
+    from line3d_tpu_torch.utils.demo import make_facade_scene
+    cfg = L3DConfig()
+    scene, cams = make_facade_scene(num_views=25, config=cfg)
+    _counted(lambda: feed(Line3D(config=cfg), scene, cams)
+             .compute_3d_model(), "kernels")
+    call = _ENUM_CALLS.pop("kernels")
+    held = _hold_enum(call, "kernels")
+    a = call[0]
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        affinity.enumerate_candidates(*a)  # ends in a readback: synchronous
+    ms = (time.perf_counter() - t0) / reps * 1e3
+    n = held["candidates"]
+    inputs = sum(np.asarray(x).nbytes for x in a[:7])
+    stream = ka.CANDIDATE_BYTES * n
+    t_mem = (inputs + stream) / PEAK_BYTES * 1e3
+    t_link = (inputs + stream + 8) / PEAK_LINK * 1e3
+    b_ms, b_by = (t_link, "host link") if t_link >= t_mem else \
+        (t_mem, "bytes")
+    log(f"[kernels] affinity enumeration on the facade's inputs: {n} "
+        f"candidates; card call {ms:.3f} ms (host clock, mean of {reps}, "
+        f"upload and readbacks included), native walk "
+        f"{held['native_s'] * 1e3:.3f} ms; bound {b_ms:.4f} ms by {b_by} "
+        f"({inputs} input bytes, {stream} stream bytes; device "
+        f"{t_mem:.4f} ms, host link {t_link:.4f} ms)")
+    return dict(max_abs_err=0.0, ms=ms, plain_ms=held["native_s"] * 1e3,
+                bound_ms=b_ms, bound_by=b_by, bound_device_ms=t_mem,
+                candidates=n, input_bytes=inputs, stream_bytes=stream)
 
 
 def collin_chain(n=512):
@@ -971,32 +1029,90 @@ def phase_house10d():
 def _launch_counts(zero=False):
     """Each kernel wrapper's launch count, after setting them all to 0
     when `zero`."""
+    from line3d_tpu_torch.cluster import affinity_cuda as ka
     from line3d_tpu_torch.match import pairwise_cuda as k1, \
         collinearity_cuda as k4, scoring_cuda as k23
     from line3d_tpu_torch.utils import peak as k6
     if zero:
         k1.LAUNCHES = k1.LAUNCHES_DENSE = k4.LAUNCHES = k6.LAUNCHES = 0
-        k23.LAUNCHES = k23.LAUNCHES_WIDE = 0
+        k23.LAUNCHES = k23.LAUNCHES_WIDE = ka.LAUNCHES = 0
     return dict(pair_valid=k1.LAUNCHES, collin_pairs=k4.LAUNCHES,
                 score=k23.LAUNCHES, score_wide=k23.LAUNCHES_WIDE,
-                pair_dense=k1.LAUNCHES_DENSE, fma_peak=k6.LAUNCHES)
+                pair_dense=k1.LAUNCHES_DENSE, fma_peak=k6.LAUNCHES,
+                affinity_enum=ka.LAUNCHES)
+
+
+# the last counted run's affinity enumeration, by its tag: (args, kwargs,
+# stream, host seconds of the call), held by _check_path_kernels
+_ENUM_CALLS = {}
 
 
 def _counted(run, tag, wide=True):
     """run() with the model path's kernel launch counts set to 0 just
     before; fails unless each kernel was launched (the scoring kernel at
-    M > 256 when `wide`, at any M otherwise).  Returns (run's result, the
-    counts just after)."""
+    M > 256 when `wide`, at any M otherwise), K4 once and the affinity
+    enumeration once, on the card, with its four launches.  Keeps that
+    enumeration's call under `tag` for _check_path_kernels.  Returns (run's
+    result, the counts just after)."""
+    import torch
+    from line3d_tpu_torch.cluster import affinity, affinity_cuda as ka
+    enum = affinity.enumerate_candidates
+    calls = []
+
+    def timed(*a, **k):
+        t0 = time.perf_counter()
+        out = enum(*a, **k)
+        calls.append((a, k, out, time.perf_counter() - t0))
+        return out
+    _ENUM_CALLS.clear()
     _launch_counts(zero=True)
-    out = run()
+    affinity.enumerate_candidates = timed
+    try:
+        out = run()
+    finally:
+        affinity.enumerate_candidates = enum
     counts = _launch_counts()
     require(counts["pair_valid"] > 0 and counts["collin_pairs"] > 0
             and counts["score_wide" if wide else "score"] > 0,
             f"{tag}: a kernel of the path was not launched")
     require(counts["collin_pairs"] == 1,
             f"{tag}: K4 ran {counts['collin_pairs']} times in one model")
-    log(f"[{tag}] launches in the run: {counts}")
+    require(len(calls) == 1 and torch.device(calls[0][0][-1]).type == "cuda"
+            and counts["affinity_enum"] == AFFINITY_ENUM_LAUNCHES,
+            f"{tag}: the affinity enumeration ran {len(calls)} times, "
+            f"{counts['affinity_enum']} launches, not once on the card")
+    _ENUM_CALLS[tag] = calls[0]
+    n = len(calls[0][2][0])
+    log(f"[{tag}] launches in the run: {counts}; the affinity enumeration "
+        f"on the card: {n} candidates ({ka.CANDIDATE_BYTES * n} B read "
+        f"back) in {calls[0][3]:.4f} s (host clock)")
     return out, counts
+
+
+def _hold_enum(call, tag):
+    """A recorded card enumeration (args, kwargs, stream, seconds) against
+    the native walk (`device="cpu"`) on the same inputs, bit for bit, the
+    walk timed by host clock.  Returns its figures."""
+    from line3d_tpu_torch.cluster import affinity, affinity_cuda as ka
+    a, _, got, t_card = call
+    t0 = time.perf_counter()
+    want = affinity.enumerate_candidates(*a[:-1], device="cpu")
+    t_native = time.perf_counter() - t0
+    differ = [name for g, w, name in zip(got, want, ("src", "tgt", "kind",
+                                                     "cw"))
+              if g.dtype != w.dtype or g.shape != w.shape or
+              not np.array_equal(g.view(np.uint8), w.view(np.uint8))]
+    n = len(want[0])
+    P, B = np.asarray(a[2]).size, np.asarray(a[0]).size
+    log(f"[{tag}] affinity enumeration: the card's stream of {n} "
+        f"candidates ({P} packed pairs, {B} sources) "
+        f"against the native walk's: differs in {differ or 'nothing'}; "
+        f"card call {t_card:.4f} s, walk {t_native:.4f} s (host clock)")
+    require(not differ, f"{tag}: the card's candidate stream differs from "
+            f"the native walk's in {differ}")
+    return dict(candidates=n, readback_bytes=ka.CANDIDATE_BYTES * n,
+                pairs=int(P), sources=int(B),
+                card_s=t_card, native_s=t_native)
 
 
 def _profile(run, tag):
@@ -1476,8 +1592,10 @@ def _check_path_kernels(l3d, tag, views=None, capped=False):
     only adds supports, so the two runs bracket every value that supports
     at the threshold can give a slot), with the bounds above.  With
     `capped` (a run with uncapped_fallback=False) each view is re-matched
-    at the run's caps and must overflow as the run's view did.  The
-    launches made here come after the run's counts were read."""
+    at the run's caps and must overflow as the run's view did.  For a
+    Line3D run, the affinity enumeration that _counted kept under `tag`
+    is held to the native walk (_hold_enum).  The launches made here come
+    after the run's counts were read."""
     import torch
     from line3d_tpu_torch.match import collinearity as col, engine, \
         pairwise, pairwise_cuda as k1, scoring as sc
@@ -1604,6 +1722,11 @@ def _check_path_kernels(l3d, tag, views=None, capped=False):
                                pairs=int((g[0] >= 0).sum()),
                                weights_differ=differ)
     out["selection_syncs"] = selection_syncs
+    call = _ENUM_CALLS.pop(tag, None)
+    if hasattr(l3d, "stats"):        # a Line3D run, not a step's tables
+        require(call is not None, f"{tag}: no counted run's affinity "
+                "enumeration to hold")
+    out["affinity_enum"] = _hold_enum(call, tag) if call else None
     return out
 
 
@@ -2321,19 +2444,26 @@ def multiproc_rank(spec: str) -> int:
     out = dict(rank=rank, lo=lo, hi=hi, device=str(dev))
     l3d, out["cold"] = runner(cfg)()
     sweeps = []
+    torch.cuda.reset_peak_memory_stats(dev)
     with spy(collinearity, "collinearity_compact_all", []) as k4calls, \
             spy(affinity, "_finalize_candidates", sweeps):
         (l3d, out["warm"]), out["counts"] = _counted(runner(cfg), tag)
+    out["peak"] = torch.cuda.max_memory_allocated(dev)
     st = l3d.stats
     stage_bytes = {k: st["gathered_by_stage"][k]
                    for k in ("collinearity", "matching", "affinity")}
     out.update(t_match=st["t_match"], t_collin=st["t_collin"],
                gathered_bytes=st["gathered_bytes"], stage_bytes=stage_bytes,
                sweep_candidates=len(sweeps[-1][0][1]) if sweeps else 0,
-               views_local=st["views_local"], lines=st["num_lines"])
+               views_local=st["views_local"], lines=st["num_lines"],
+               affinity_candidates=st["affinity_candidates"],
+               t_affinity_enum=st["t_affinity_enum"])
     log(f"[{tag}] exact: cold {out['cold']:.3f} s, warm {out['warm']:.3f} s"
         f" (t_collin {st['t_collin']:.3f}, t_match {st['t_match']:.3f}, "
-        f"t_cluster {st['t_cluster']:.3f} s), {st['num_lines']} lines; "
+        f"t_cluster {st['t_cluster']:.3f}, t_affinity_enum "
+        f"{st['t_affinity_enum']:.3f} s for {st['affinity_candidates']} "
+        f"candidates), {st['num_lines']} lines; peak device memory of this "
+        f"process {out['peak']} B; "
         f"received {st['gathered_bytes']} bytes from the other ranks, by "
         f"stage {stage_bytes} (the weight sweep split over "
         f"{out['sweep_candidates']} candidates); launches {out['counts']}")
@@ -2614,8 +2744,10 @@ def scale_rank(spec: str) -> int:
     cfg = L3DConfig()
     scene, cams = make_facade_scene(num_views=SCALE_VIEWS, config=cfg)
     lo, hi = multihost.my_view_range(SCALE_VIEWS, rank, nproc)
+    torch.cuda.reset_peak_memory_stats(scene.device)
     (l3d, secs), counts = _counted(
         lambda: _scale_run(cfg, scene, cams, scene.device), tag)
+    peak = torch.cuda.max_memory_allocated(scene.device)
     st = l3d.stats
     ex = _scale_exact(st, l3d, tag)
     require(counts["pair_valid"] == counts["score"] == hi - lo ==
@@ -2623,13 +2755,16 @@ def scale_rank(spec: str) -> int:
             f"other views than its own {hi - lo}")
     out = dict(rank=rank, lo=lo, hi=hi, device=str(scene.device),
                seconds=secs, counts=counts, lines=st["num_lines"],
-               gathered_by_stage=st["gathered_by_stage"], **ex,
+               gathered_by_stage=st["gathered_by_stage"], peak=peak, **ex,
                **{k: st[k] for k in ("t_collin", "t_match", "t_affinity",
+                                     "t_affinity_enum", "affinity_candidates",
                                      "t_fh", "t_fit", "t_cluster")})
     log(f"[{tag}] views [{lo}, {hi}) on {scene.device}: one run (cold) "
         f"{secs:.3f} s (t_collin {st['t_collin']:.3f}, t_match "
-        f"{st['t_match']:.3f}, t_cluster {st['t_cluster']:.3f} s), "
-        f"{st['num_lines']} lines; received by stage "
+        f"{st['t_match']:.3f}, t_cluster {st['t_cluster']:.3f}, "
+        f"t_affinity_enum {st['t_affinity_enum']:.3f} s for "
+        f"{st['affinity_candidates']} candidates), {st['num_lines']} lines; "
+        f"peak device memory of this process {peak} B; received by stage "
         f"{st['gathered_by_stage']}")
     with open(os.path.join(outdir, f"scale_{rank}.txt"), "w") as f:
         f.write(_txt_text(l3d))
@@ -2667,8 +2802,10 @@ def phase_scale(card):
     peak = torch.cuda.max_memory_allocated()
     log(f"[scale] cold {cold:.3f} s, warm {warm:.3f} s = {V / warm:.2f} "
         f"images/s on {card} (t_collin {st['t_collin']:.3f}, t_match "
-        f"{st['t_match']:.3f}, t_affinity {st['t_affinity']:.3f}, t_fh "
-        f"{st['t_fh']:.3f}, t_fit {st['t_fit']:.3f} s); {st['num_lines']} "
+        f"{st['t_match']:.3f}, t_affinity {st['t_affinity']:.3f} of which "
+        f"t_affinity_enum {st['t_affinity_enum']:.3f} for "
+        f"{st['affinity_candidates']} candidates, t_fh {st['t_fh']:.3f}, "
+        f"t_fit {st['t_fit']:.3f} s); {st['num_lines']} "
         f"lines, {st['num_edges']} edges; m_total per view "
         f"{dict(zip(mt.tolist(), mc.tolist()))}; exactness {ex}; peak "
         f"device memory {peak} B")
@@ -2699,11 +2836,11 @@ def phase_scale(card):
 
 # phase cudatests: the `cuda`-marked tests run on the card, in a process of
 # their own (tests/conftest.py imports JAX, which that machine lacks; hence
-# --noconftest).  On one card 37 pass and one skips,
+# --noconftest).  On one card 46 pass and one skips,
 # test_pair_valid_kernel_on_second_card, which needs two cards.
 CUDA_TESTS = ["tests/test_torch_kernels_cuda.py", "-q", "-m", "cuda",
               "--noconftest", "-p", "no:cacheprovider"]
-CUDA_TESTS_PASSED = 37            # on one card; one more on two or more
+CUDA_TESTS_PASSED = 46            # on one card; one more on two or more
 CUDA_TESTS_TIMEOUT_S = 600
 
 
@@ -2926,7 +3063,9 @@ def phase_clutter(card):
         log(f"[{tag}] make_demo_scene({CLUTTER_VIEWS}, 2990) built in "
             f"{t_build:.2f} s (S {scene.max_segments}); one run {secs:.3f} "
             f"s on {card} (t_collin {st['t_collin']:.3f}, t_match "
-            f"{st['t_match']:.3f}, t_cluster {st['t_cluster']:.3f} s); "
+            f"{st['t_match']:.3f}, t_cluster {st['t_cluster']:.3f}, "
+            f"t_affinity_enum {st['t_affinity_enum']:.3f} s for "
+            f"{st['affinity_candidates']} candidates); "
             f"{st['num_lines']} lines; match_overflow "
             f"{st['match_overflow']}, views re-matched "
             f"{st['views_rematched_uncapped']}, m_total per view "
@@ -3021,7 +3160,9 @@ def main() -> int:
     # the counts of phase stressstages (its stage and quota benches) and
     # `held_at_stressstages_shapes` its comparison; the scoring kernel's
     # `stressstages_ms_m2048` is that phase's stage D less stage C at
-    # m_total 2048 (CUDA events).  No
+    # m_total 2048 (CUDA events).  The affinity enumeration replaces no TPU
+    # kernel (line3d_tpu enumerates on the host); its `ms` is the whole
+    # call by host clock, its `plain_ms` the native walk's.  No
     # single PyTorch call computes any of these functions, so `library_ms`
     # is null throughout.
     cnt = fa["counts"]
@@ -3034,7 +3175,8 @@ def main() -> int:
             score={k: {key: d[key] for key in d
                        if key in ("S", "M") or key.startswith("score_")}
                    for k, d in views.items()},
-            collin_pairs=held["collin_pairs"])
+            collin_pairs=held["collin_pairs"],
+            affinity_enum=held["affinity_enum"])
     held_cli, held_scale = held_by_kernel(cl["held"]), \
         held_by_kernel(sc["held"])
     held_clutter = {k: held_by_kernel(cu[k]["held"])
@@ -3117,6 +3259,13 @@ def main() -> int:
              **{key: k6[key] for key in ("max_abs_err", "ms", "plain_ms",
                                          "bound_ms", "bound_by",
                                          "tflops")}),
+        dict(name="affinity_enum", route="cuda",
+             source="line3d_tpu_torch/csrc/affinity_enum.cu",
+             replaces=None,
+             plain_twin="line3d_tpu_torch/native/affinity_enum.cpp:98",
+             launches=cnt["affinity_enum"], library_ms=None,
+             launches_per_facade_run=cnt["affinity_enum"],
+             **also("affinity_enum"), **k["affinity_enum"]),
     ]
     log(json.dumps({"kernels": kernels}))
     print(smi, flush=True)

@@ -24,17 +24,21 @@ are order-dependent and preserved here.
 The per-pair 3D similarity (similarity_coll3D, line3D.cc:1600-1681) is
 evaluated vectorized over all candidate pairs after enumeration.
 
-Host numpy + native C++ copy of `line3d_tpu/cluster/affinity.py`.  Under N
-processes (`parallel.multihost`) the finalize's weight sweep is split by
-candidate range across the ranks and gathered as float64 bits
-(`_finalize_candidates`); the enumeration and the emission run replicated,
-so every rank builds the single-process graph.
+Host numpy + native C++ copy of `line3d_tpu/cluster/affinity.py`.  With
+collinearity the exact-order enumeration runs on the card when the Line3D's
+device is CUDA (`affinity_cuda`, `csrc/affinity_enum.cu`), in the native
+walk otherwise; both give one stream.  Under N processes
+(`parallel.multihost`) the finalize's weight sweep is split by candidate
+range across the ranks and gathered as float64 bits
+(`_finalize_candidates`); the enumeration (each rank on its own card) and
+the emission run replicated, so every rank builds the single-process graph.
 """
 from __future__ import annotations
 
 import dataclasses
 
 import numpy as np
+import torch
 
 from ..config import L3DConfig
 from ..core.cameras import CameraSet
@@ -52,6 +56,7 @@ class AffinityGraph:
     node_view: np.ndarray     # [B] int32: local id -> view
     node_seg: np.ndarray      # [B] int32: local id -> segment
     num_nodes: int
+    num_candidates: int = 0   # length of the candidate stream it was built from
 
 
 # batch size above which similarity_coll3d and the candidate finalize run
@@ -183,6 +188,7 @@ def _build_affinity_graph_fast(best, adj, row_of, key_of, cams, config,
     keep = (tgt_rows >= 0) & (src_keys < tgt_keys)
     src_rows = src_rows[keep]
     tgt_rows = tgt_rows[keep]
+    n_cand = len(src_rows)
 
     sim = similarity_coll3d(cams, best, src_rows, tgt_rows, config.sigma_a)
     w = 0.5 * (best.score[src_rows].astype(np.float64) +
@@ -218,7 +224,7 @@ def _build_affinity_graph_fast(best, adj, row_of, key_of, cams, config,
         edges_i=ei, edges_j=ej, edges_w=ew,
         node_view=best.view[node_rows].astype(np.int32),
         node_seg=best.seg[node_rows].astype(np.int32),
-        num_nodes=len(node_rows))
+        num_nodes=len(node_rows), num_candidates=n_cand)
 
 
 def _collin_csr(collin, num_views: int, S: int):
@@ -308,8 +314,8 @@ def _emit_graph(best, src_rows, tgt_rows, w, verbose):
     node ids at first touch + interleaved symmetric edges
     (line3D.cc:1019-1050).  The native sequential pass (affinity_emit) for
     streams above NATIVE_SIM_THRESHOLD, numpy below."""
-    if len(src_rows) > NATIVE_SIM_THRESHOLD:
-        n = len(src_rows)
+    n = len(src_rows)
+    if n > NATIVE_SIM_THRESHOLD:
         B = best.view.size
         edges_i = np.empty(2 * n, np.int32)
         edges_j = np.empty(2 * n, np.int32)
@@ -361,15 +367,16 @@ def _emit_graph(best, src_rows, tgt_rows, w, verbose):
         edges_i=ei, edges_j=ej, edges_w=ew,
         node_view=best.view[node_rows].astype(np.int32),
         node_seg=best.seg[node_rows].astype(np.int32),
-        num_nodes=len(node_rows))
+        num_nodes=len(node_rows), num_candidates=n)
 
 
-def _build_affinity_graph_native(lib, best, matches, key_of, collin, cams,
-                                 config, max_segments, verbose):
-    """Native exact-order enumeration (native/affinity_enum.cpp): the
-    reference's sequential traversal in C++ with an open-addressing pair
-    set — ~20x the numpy stream formulation at 1000-view density.  Output
-    is candidate-for-candidate identical to the reference's loop and
+def _build_affinity_graph_native(best, matches, key_of, collin, cams,
+                                 config, max_segments, verbose, device):
+    """Exact-order enumeration (`enumerate_candidates`): the reference's
+    sequential traversal, on the card for a CUDA `device`, else in C++
+    with an open-addressing pair set (native/affinity_enum.cpp, ~20x the
+    numpy stream formulation at 1000-view density).  Output is
+    candidate-for-candidate identical to the reference's loop and
     vectorized enumerators (tests/test_affinity.py).  Correspondence pairs
     stay in their packed a*M + b form end to end.  Its three parts are
     stage spans (`trace.stage`): affinity.pairs (the correspondence pairs,
@@ -384,31 +391,55 @@ def _build_affinity_graph_native(lib, best, matches, key_of, collin, cams,
         ptr, coll_j, coll_w = _collin_csr(collin, V, S)
 
     with trace.stage("affinity.enumerate"):
-        coll_cnt = np.diff(ptr)
         order = np.ascontiguousarray(np.argsort(key_of, kind="stable"),
                                      np.int64)
         key_sorted = np.ascontiguousarray(key_of[order])
-        pk = np.ascontiguousarray(pk)
-        ptr64 = np.ascontiguousarray(ptr, np.int64)
-        # upper bound on candidates/insertions: every correspondence pair,
-        # its target's collinear partners, and every source's collinear
-        # partners
-        coll_b = int(lib.affinity_capacity(pk, len(pk), ptr64, M))
-        expected = int(len(pk) + coll_b + coll_cnt[key_sorted].sum())
-        out_src = np.empty(expected, np.int64)
-        out_tgt = np.empty(expected, np.int64)
-        out_kind = np.empty(expected, np.int8)
-        out_cw = np.empty(expected, np.float64)
-        cnt = lib.affinity_enumerate_packed(
-            key_sorted, order, len(order), pk, len(pk),
-            np.ascontiguousarray(row_lookup, np.int64), ptr64,
-            np.ascontiguousarray(coll_j, np.int64),
-            np.ascontiguousarray(coll_w, np.float64),
-            S, M, expected, out_src, out_tgt, out_kind, out_cw)
+        cand = enumerate_candidates(key_sorted, order, pk, row_lookup, ptr,
+                                    coll_j, coll_w, S, M, device)
     with trace.stage("affinity.weights"):
-        return _finalize_candidates(best, out_src[:cnt], out_tgt[:cnt],
-                                    out_kind[:cnt], out_cw[:cnt],
-                                    cams, config, verbose)
+        return _finalize_candidates(best, *cand, cams, config, verbose)
+
+
+def enumerate_candidates(key_sorted, order, pk, row_lookup, ptr, coll_j,
+                         coll_w, S: int, M: int, device=None):
+    """The exact-order candidate stream (src_rows, tgt_rows, kinds 0=A
+    1=B 2=C, collinear weights) of the sources `key_sorted` (their rows
+    `order`), the sorted symmetric packed correspondence pairs `pk`, the
+    key -> row lookup (-1 exactly for keys not in `key_sorted`) and the
+    collinearity CSR (partners ascending in each row).  On a CUDA
+    `device` the card decides it (`affinity_cuda`); otherwise the native
+    walk `affinity_enumerate_packed`, its plain twin."""
+    coll_w = np.ascontiguousarray(coll_w, np.float64)
+    if device is not None and torch.device(device).type == "cuda":
+        from . import affinity_cuda
+        return affinity_cuda.enumerate_candidates_cuda(
+            key_sorted, order, pk, row_lookup, ptr, coll_j, coll_w, S, M,
+            torch.device(device))
+    return _enumerate_native(key_sorted, order, pk, row_lookup, ptr, coll_j,
+                             coll_w, S, M)
+
+
+def _enumerate_native(key_sorted, order, pk, row_lookup, ptr, coll_j, coll_w,
+                      S, M):
+    """The native walk over a capacity bound: every correspondence pair,
+    its target's collinear partners, and every source's collinear
+    partners."""
+    lib = get_lib()
+    ptr64 = np.ascontiguousarray(ptr, np.int64)
+    pk = np.ascontiguousarray(pk, np.int64)
+    coll_b = int(lib.affinity_capacity(pk, len(pk), ptr64, M))
+    expected = int(len(pk) + coll_b + np.diff(ptr64)[key_sorted].sum())
+    out_src = np.empty(expected, np.int64)
+    out_tgt = np.empty(expected, np.int64)
+    out_kind = np.empty(expected, np.int8)
+    out_cw = np.empty(expected, np.float64)
+    cnt = lib.affinity_enumerate_packed(
+        np.ascontiguousarray(key_sorted, np.int64),
+        np.ascontiguousarray(order, np.int64), len(order), pk, len(pk),
+        np.ascontiguousarray(row_lookup, np.int64), ptr64,
+        np.ascontiguousarray(coll_j, np.int64), coll_w,
+        S, M, expected, out_src, out_tgt, out_kind, out_cw)
+    return out_src[:cnt], out_tgt[:cnt], out_kind[:cnt], out_cw[:cnt]
 
 
 def _correspondence_pairs_packed(matches: list, num_views: int,
@@ -444,15 +475,19 @@ def _correspondence_pairs(matches: list, num_views: int, max_segments: int):
 def build_affinity_graph(best: BestMatches, matches: list,
                          collin: list | None, cams: CameraSet,
                          config: L3DConfig, max_segments: int,
-                         verbose: bool = False) -> AffinityGraph:
+                         verbose: bool = False,
+                         device=None) -> AffinityGraph:
+    """The affinity graph (line3D.cc:968-1221).  With collinear pairs the
+    exact-order enumeration runs on the card when `device` is CUDA (the
+    Line3D's device), in the native walk otherwise; without them the
+    vectorized A-candidate path runs on the host."""
     S = max_segments
     key_of = best.view.astype(np.int64) * S + best.seg.astype(np.int64)
 
     has_collin = collin is not None and any(len(c) for c in collin)
     if has_collin:
         return _build_affinity_graph_native(
-            get_lib(), best, matches, key_of, collin, cams, config, S,
-            verbose)
+            best, matches, key_of, collin, cams, config, S, verbose, device)
 
     adj = potential_correspondence_lists(matches, cams.num_views, S)
     row_of = {int(k): r for r, k in enumerate(key_of)}

@@ -40,8 +40,10 @@ _lib = None
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # C signatures: every pointer and the stream as c_void_p (a plain int would
-# be cut to 32 bits), every count as c_int
+# be cut to 32 bits), every count as c_int or, where it may pass 2**31,
+# c_longlong
 _SIGNATURES = {
     "l3d_pair_valid": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
     "l3d_pair_dense": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
@@ -50,6 +52,10 @@ _SIGNATURES = {
     "l3d_score": [_P] * 8 + [_F] * 4 + [_I] * 3 + [_P, _P, _I, _P],
     "l3d_score_scratch_bytes": [_I, _I, _I, _I],
     "l3d_fma_peak": [_P, _F, _F, _I, _I, _P, _P],
+    "l3d_affinity_count": [_P, _P, _L, _P, _L] + [_P] * 6 + [_L, _L] +
+                          [_P] * 5,
+    "l3d_affinity_write": [_P, _P, _L, _P, _L] + [_P] * 6 + [_L, _L] +
+                          [_P] * 5 + [_L, _P, _P],
     "l3d_error_string": [_I],
 }
 

@@ -353,9 +353,12 @@ class Line3D:
             # stage 5: clustering (line3D.cc:373)
             b = multihost.GATHERED_BYTES
             with trace.stage("affinity"):
+                # the exact-order enumeration runs on the Line3D's device
                 graph = affinity.build_affinity_graph(
                     best, matches, scene.collin, cams, cfg,
-                    scene.max_segments, verbose=self.verbose)
+                    scene.max_segments, verbose=self.verbose,
+                    device=self.device)
+            n_candidates = graph.num_candidates
             by_stage["affinity"] = multihost.GATHERED_BYTES - b
             b = multihost.GATHERED_BYTES
             with trace.stage("diffusion"):
@@ -405,6 +408,8 @@ class Line3D:
             t_affinity_pairs=t.get("affinity.pairs", 0.0),
             t_affinity_enum=t.get("affinity.enumerate", 0.0),
             t_affinity_weights=t.get("affinity.weights", 0.0),
+            # the length of the affinity stage's candidate stream
+            affinity_candidates=n_candidates,
             t_match_wait=t_match_wait,
             # the model's host synchronisations and device-to-host bytes,
             # every readback counted (trace.readback)

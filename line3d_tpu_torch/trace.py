@@ -130,10 +130,12 @@ def count(name: str, n: int = 1):
         _counts[name] = _counts.get(name, 0) + int(n)
 
 
-def readback(x: torch.Tensor, site: str):
+def readback(x: torch.Tensor, site: str, out: torch.Tensor | None = None):
     """x on the host as a numpy array (x.cpu().numpy(): a copy from a device,
     x's own memory on the CPU), counted as one synchronisation and
-    x.nbytes bytes under `site`, on any device."""
+    x.nbytes bytes under `site`, on any device.  `out`, a host tensor of
+    x's shape and dtype (pinned, for a copy at the link's full rate),
+    receives the copy; the array is then out's memory."""
     global SYNCS, DTOH_BYTES
     nbytes = x.numel() * x.element_size()
     SYNCS += 1
@@ -142,12 +144,10 @@ def readback(x: torch.Tensor, site: str):
     if _ON:
         count("syncs." + site)
         count("dtoh_bytes." + site, nbytes)
-        with _Span("wait." + site):
-            out = x.cpu().numpy()
-    else:
-        out = x.cpu().numpy()
+    with _Span("wait." + site) if _ON else _NULL:
+        arr = x.cpu().numpy() if out is None else out.copy_(x).numpy()
     WAIT_NS[site] = WAIT_NS.get(site, 0) + time.perf_counter_ns() - t0
-    return out
+    return arr
 
 
 def enabled() -> bool:

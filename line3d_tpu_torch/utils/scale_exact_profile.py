@@ -33,7 +33,7 @@ fields `line3d_tpu`'s scripts/stress_exact_profile.py prints a trial:
 every `t_*`, `probe_*`, overflow, re-match and re-derivation count; so
 `25 --scene clutter` is that script's counterpart), the kernels' launches
 in each warm run
-(the wrappers' `LAUNCHES`), `torch.cuda.max_memory_allocated` over the V's
+(the wrappers' `LAUNCHES`), the affinity enumeration's stream length, `torch.cuda.max_memory_allocated` over the V's
 runs, the process's peak RSS, `gathered_by_stage`, and the sha256 of the
 cold run's TXT; the cold run's stage times; with refinement or BA the
 clusters fitted and their member counts (median, p99, largest), and
@@ -70,6 +70,7 @@ import numpy as np
 import torch
 
 from .. import L3DConfig, Line3D
+from ..cluster import affinity_cuda
 from ..fit import bundle, refine
 from ..match import collinearity_cuda, pairwise_cuda, scoring_cuda
 from ..parallel import multihost
@@ -81,7 +82,8 @@ from .time_match_view import FACADE_CONFIGS
 _COUNTERS = ((pairwise_cuda, "LAUNCHES", "pair_valid"),
              (collinearity_cuda, "LAUNCHES", "collin_pairs"),
              (scoring_cuda, "LAUNCHES", "score"),
-             (scoring_cuda, "LAUNCHES_WIDE", "score_wide"))
+             (scoring_cuda, "LAUNCHES_WIDE", "score_wide"),
+             (affinity_cuda, "LAUNCHES", "affinity_enum"))
 STAGES = ("t_setup", "t_graph", "t_collin", "t_match", "t_affinity",
           "t_diffusion", "t_fh", "t_fit", "t_cluster", "t_total")
 EXACTNESS = ("match_overflow", "views_rematched_uncapped", "probe_m_total",
@@ -303,6 +305,7 @@ def profile_views(V: int, device, n_warm: int = 3, out: str | None = None,
     rec.update(
         best_s=secs, images_per_s=V / secs, lines=st["num_lines"],
         edges=st["num_edges"], best_rows=st["num_best"],
+        affinity_candidates=st["affinity_candidates"],
         views_local=st["views_local"],
         m_total={str(m): int(c) for m, c in zip(*m_totals)},
         collin_dropped_left=int(l3d.scene.collin.dropped_total),

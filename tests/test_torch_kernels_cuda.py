@@ -23,7 +23,11 @@ rtol 2e-4 / atol 1e-7 against the float64 host; device refine:
 tests/test_refine.py's criteria against the host.  The recorder
 (trace.py): on one exact model of the 25-view facade and clutter scenes,
 its synchronisations and device-to-host bytes equal to the sync debug
-mode's count and the profiler's copies, exactly."""
+mode's count and the profiler's copies, exactly.  The affinity stage's
+exact-order enumeration (csrc/affinity_enum.cu): its candidate stream
+equal to the native walk's element for element, on hand-built and random
+small inputs and on one model of the 25-view facade and clutter scenes,
+whose whole graph equals the CPU call's."""
 import json
 import os
 import subprocess
@@ -43,8 +47,10 @@ from line3d_tpu_torch.match import collinearity as col, \
     scoring_cuda as k23
 from line3d_tpu_torch.utils import peak as k6
 from line3d_tpu_torch.utils.synthetic import make_scene
-from torch_port_helpers import HOUSE10_DIFFUSION_OUTSIDE, HOUSE10_OUTSIDE, \
-    SELECTION_KINDS, pair_dense_ieee, selection_tables, stereo_views
+from torch_port_helpers import AFFINITY_ORDER_CASES, \
+    HOUSE10_DIFFUSION_OUTSIDE, HOUSE10_OUTSIDE, SELECTION_KINDS, \
+    affinity_enum_inputs, affinity_random_case, assert_same_stream, \
+    pair_dense_ieee, selection_tables, stereo_views
 
 pytestmark = pytest.mark.cuda
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -652,3 +658,77 @@ def test_the_recorder_counts_every_sync_and_copy(dev, scene):
     got = json.loads(proc.stdout.strip().splitlines()[-1])
     assert got["syncs_recorder"] == got["syncs_debug"] > 0, got
     assert got["dtoh_bytes_recorder"] == got["dtoh_bytes_profiler"] > 0, got
+
+
+@pytest.mark.parametrize("name", sorted(AFFINITY_ORDER_CASES))
+def test_affinity_enum_kernel_on_hand_built_cases(dev, name):
+    """The card's candidate stream against the native walk's on
+    tests/torch_port_helpers.AFFINITY_ORDER_CASES."""
+    from line3d_tpu_torch.cluster import affinity
+    keys, pairs, coll, _, _ = AFFINITY_ORDER_CASES[name]
+    inputs = affinity_enum_inputs(keys, pairs, coll, 3, 8)
+    assert_same_stream(affinity.enumerate_candidates(*inputs, device=dev),
+                       affinity.enumerate_candidates(*inputs, device="cpu"))
+
+
+def test_affinity_enum_kernel_on_random_graphs(dev):
+    """The card's candidate stream against the native walk's on 200 random
+    small inputs (tests/test_torch_affinity_order.py's), half of them with
+    pairs inside a view, self pairs and repeated partners."""
+    from line3d_tpu_torch.cluster import affinity
+    for seed in range(200):
+        inputs = affinity_random_case(seed, general=seed % 2 == 1)
+        assert_same_stream(
+            affinity.enumerate_candidates(*inputs, device=dev),
+            affinity.enumerate_candidates(*inputs, device="cpu"))
+
+
+@pytest.mark.parametrize("scene", ["facade", "clutter"])
+def test_affinity_enum_kernel_on_25_view_scenes(dev, scene):
+    """One model of `scale_exact_profile`'s 25-view scene (the 1920 x 1440
+    facade, or the clutter scene at S = 3,072) on the card: its
+    enumeration ran on the card (its four kernel launches, one readback at
+    `affinity.candidates`, 25 bytes a candidate,
+    `stats["affinity_candidates"]` the stream's length), and its stream
+    equals the native walk's on the same inputs; the model's graph equals
+    `build_affinity_graph` on the CPU, field for field."""
+    from line3d_tpu_torch import trace
+    from line3d_tpu_torch.cluster import affinity
+    from line3d_tpu_torch.utils import scale_exact_profile as sep
+    cfg = sep.make_config()
+    sc, cams = sep.make_scene(25, scene, cfg, dev)
+    seen = {"graph": [], "enum": []}
+    origs = {name: getattr(affinity, name) for name in
+             ("build_affinity_graph", "enumerate_candidates")}
+
+    def spy(name, key):
+        def fn(*a, **k):
+            out = origs[name](*a, **k)
+            seen[key].append((a, k, out))
+            return out
+        return fn
+    affinity.build_affinity_graph = spy("build_affinity_graph", "graph")
+    affinity.enumerate_candidates = spy("enumerate_candidates", "enum")
+    try:
+        with trace.recording():
+            _, l3d, launches, _ = sep.run_once(cfg, sc, cams, 0.0, dev)
+            counters = trace.collect()["counters"]
+    finally:
+        for name, fn in origs.items():
+            setattr(affinity, name, fn)
+    assert launches["affinity_enum"] == 4
+    [(g_args, g_kw, graph)] = seen["graph"]
+    [(e_args, _, got)] = seen["enum"]
+    assert g_kw["device"].type == e_args[-1].type == "cuda"
+    want = affinity.enumerate_candidates(*e_args[:-1], device="cpu")
+    assert_same_stream(got, want)
+    n = len(want[0])
+    assert l3d.stats["affinity_candidates"] == n > 0
+    assert counters["syncs.affinity.candidates"] == 1
+    assert counters["dtoh_bytes.affinity.candidates"] == 25 * n
+    host = affinity.build_affinity_graph(*g_args, device="cpu")
+    assert graph.num_nodes == host.num_nodes > 0
+    for f in ("edges_i", "edges_j", "edges_w", "node_view", "node_seg"):
+        a, b = getattr(graph, f), getattr(host, f)
+        assert a.dtype == b.dtype, f
+        np.testing.assert_array_equal(a, b, f)

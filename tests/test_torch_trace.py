@@ -86,7 +86,8 @@ def test_off_records_nothing_and_keeps_every_stats_key(off):
     assert trace.span("a") is trace.span("b", torch.device("cpu"))
     trace.count("x", 3)
     assert trace.collect()["counters"] == {}
-    assert set(l3d.stats) == STATS_KEYS | NEW_KEYS
+    assert set(l3d.stats) == STATS_KEYS | NEW_KEYS | {"affinity_candidates"}
+    assert l3d.stats["affinity_candidates"] > 0
     # the readbacks count even off, and the stage times are there
     assert l3d.stats["readback_syncs"] > 0
     assert l3d.stats["readback_bytes"] > 0

@@ -359,3 +359,108 @@ def pair_dense_ieee(segs_src, mask_src, segs_nb, mask_nb, F_nb, RtKinv_src,
     shape = valid.shape
     return (torch.stack([d.expand(shape) for d in depths]), valid,
             slow[0].expand(shape))
+
+
+def affinity_enum_inputs(key_of, pairs, coll, V, S):
+    """The exact-order enumeration's inputs, the first nine arguments of
+    `affinity.enumerate_candidates` (key_sorted, order, pk, row_lookup,
+    ptr, coll_j, coll_w, S, M), from the best-match keys in row order, the
+    correspondence pairs (a, b) of keys (both directions are taken) and the
+    collinear triples (view, i, j), whose weights are made from them (a
+    repeated triple stays, as a repeated partner in its row)."""
+    from types import SimpleNamespace
+    from line3d_tpu_torch.cluster import affinity
+    key_of = np.asarray(key_of, np.int64)
+    M = V * S
+    order = np.argsort(key_of, kind="stable").astype(np.int64)
+    row_lookup = np.full(M, -1, np.int64)
+    row_lookup[key_of] = np.arange(len(key_of))
+    p = np.asarray(pairs, np.int64).reshape(-1, 2)
+    pk = np.unique(np.concatenate([p[:, 0] * M + p[:, 1],
+                                   p[:, 1] * M + p[:, 0]]))
+    c = np.asarray(coll, np.int64).reshape(-1, 3)
+    c = c[np.lexsort(c.T[::-1])]
+    flat = SimpleNamespace(
+        flat_view=c[:, 0].astype(np.int32), flat_i=c[:, 1].astype(np.int32),
+        flat_j=c[:, 2].astype(np.int32),
+        flat_w=(0.5 + ((c[:, 0] * S + c[:, 1]) * S + c[:, 2]) % 97 / 200.0)
+        .astype(np.float32))
+    ptr, coll_j, coll_w = affinity._collin_csr(flat, V, S)
+    return (key_of[order], order, pk, row_lookup, ptr, coll_j,
+            np.asarray(coll_w, np.float64), S, M)
+
+
+def affinity_random_case(seed, general=False):
+    """A small random input of the enumeration: 2-4 views of 3-9
+    segments, 40-95% of the keys sources, dense correspondences and
+    asymmetric collinearity.  `general` also lets a pair or a collinear
+    partner lie in one view or be the key itself, and repeats partners in
+    their rows, which the pipeline never gives and the walk takes all the
+    same."""
+    rng = np.random.default_rng(seed)
+    V, S = int(rng.integers(2, 5)), int(rng.integers(3, 10))
+    M = V * S
+    keys = np.arange(M)
+    key_of = rng.permutation(keys[rng.random(M) < rng.uniform(0.4, 0.95)])
+    n = int(rng.integers(0, 3 * M))
+    a, b = rng.integers(0, M, n), rng.integers(0, M, n)
+    if not general:
+        a, b = a[a // S != b // S], b[a // S != b // S]
+    density = rng.uniform(0.05, 0.5)
+    coll = [(k // S, k % S, j) for k in keys for j in range(S)
+            if rng.random() < density and (general or j != k % S)]
+    if general and coll:
+        coll += [coll[i] for i in rng.integers(0, len(coll), len(coll) // 8)]
+    return affinity_enum_inputs(key_of, np.stack([a, b], 1), coll, V, S)
+
+
+def assert_same_stream(got, want):
+    """Two candidate streams (src_rows, tgt_rows, kinds, cws) equal
+    element for element, dtypes included."""
+    for g, w, name in zip(got, want, ("src", "tgt", "kind", "cw")):
+        assert g.dtype == w.dtype, name
+        np.testing.assert_array_equal(g, w, name)
+
+
+# Hand-built inputs of the enumeration on 3 views of 8 segments (key =
+# view * 8 + segment): (best-match keys, correspondence pairs, collinear
+# triples (view, i, j)), each with the (source key, target key, kind) the
+# walk must emit or must not.
+AFFINITY_ORDER_CASES = {
+    # 0's expansion of 9 marks {0, 10}: A (0, 10) is dropped with its
+    # expansion, which would have given (0, 13)
+    "b_mark_kills_a": ([0, 9, 10, 13], [(0, 9), (0, 10)],
+                       [(1, 1, 2), (1, 2, 5)],
+                       [(0, 10, 1), (9, 10, 2), (10, 13, 2)],
+                       [(0, 10, 0), (0, 13, 1)]),
+    # 9 kills 10; 10's expansion, which would kill 11, never runs, so 11
+    # runs and kills 12, whose expansion (0, 14) never runs
+    "chain_of_three": ([0, 9, 10, 11, 12, 14],
+                       [(0, 9), (0, 10), (0, 11), (0, 12)],
+                       [(1, 1, 2), (1, 2, 3), (1, 3, 4), (1, 4, 6)],
+                       [(0, 9, 0), (0, 10, 1), (0, 11, 0), (0, 12, 1)],
+                       [(0, 10, 0), (0, 12, 0), (0, 14, 1)]),
+    # 9 and 11 have no best match: no A entry and no expansion for them,
+    # so {0, 10} stays fresh for A; (0, 11) and 0's partner 1 give nothing
+    "targets_without_best_row": ([0, 10, 13], [(0, 9), (0, 10), (0, 11)],
+                                 [(1, 1, 2), (1, 1, 5), (1, 2, 3),
+                                  (0, 0, 1)],
+                                 [(0, 10, 0)],
+                                 [(0, 13, 1)]),
+    # 0's partners 1 and 2 are no correspondents; 1 lists 0 back (dropped,
+    # 0 marked it), 2 does not
+    "collinear_partners_outside_correspondents": (
+        [0, 1, 2, 9], [(0, 9)], [(0, 0, 1), (0, 0, 2), (0, 1, 0)],
+        [(0, 9, 0), (0, 1, 2), (0, 2, 2)], [(1, 0, 2)]),
+    # no collinear pair at all: A entries only, each pair once
+    "empty_csr_rows": ([0, 9, 17, 20], [(0, 9), (9, 17), (0, 17), (9, 20)],
+                       [], [(0, 9, 0), (0, 17, 0), (9, 17, 0), (9, 20, 0)],
+                       [(17, 9, 0)]),
+    # pairs inside view 0: source 1's expansion of 2 marks {1, 3}, so 3's
+    # own partner 1 and its expansion of 5 (partner 1) are dropped; 5's
+    # partner 1 was not marked
+    "marked_below_through_b": ([1, 2, 3, 5], [(1, 2), (3, 5)],
+                               [(0, 2, 3), (0, 3, 1), (0, 5, 1)],
+                               [(1, 3, 1), (2, 3, 2), (3, 5, 0), (5, 1, 2)],
+                               [(3, 1, 2), (3, 1, 1)]),
+}
