@@ -151,15 +151,17 @@ def resolve_backend(value: str, device) -> str:
 
 
 def run_diffusion(graph, config: L3DConfig, verbose: bool = False, *,
-                  device):
+                  device, out_info: dict | None = None):
     """Diffuse a cluster.AffinityGraph in place; returns it with the new
-    edge list.  The device backend runs on `device` (float32 torch)."""
+    edge list.  The device backend runs on `device` (float32 torch) and
+    gives `out_info` the stage's size (diffusion_device's `edges`,
+    `terms`)."""
     if resolve_backend(config.diffusion_backend, device) == "device":
         from . import diffusion_device as dd
         fn = dd.diffuse_reference_device \
             if config.diffusion_mode == "reference" \
             else dd.diffuse_true_device
-        kw = dict(device=device)
+        kw = dict(device=device, out_info=out_info)
     else:
         fn = diffuse_reference if config.diffusion_mode == "reference" \
             else diffuse_true

@@ -75,7 +75,8 @@ class L3DConfig:
     # --- line refinement (additive, no reference equivalent) ---
     refine_lines: bool = False
     refine_iterations: int = 5
-    refine_backend: str = "auto"         # as diffusion_backend
+    # as diffusion_backend, the device form in float64 torch
+    refine_backend: str = "auto"
 
     # --- joint camera + line bundle adjustment (additive) ---
     bundle_adjust_cameras: bool = False

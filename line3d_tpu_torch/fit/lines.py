@@ -62,6 +62,8 @@ def process_clusters(graph: AffinityGraph, labels: np.ndarray,
     lands in out_info (ba_rms_before/after, R_cond, t_cond).  The device
     forms run on `device`, each rank on its own blocks of clusters
     (`parallel/multihost.py`); the host refinement runs on every rank.
+    Either refinement gives out_info the clusters and members it refined
+    (refine_clusters, refine_members).
     """
     if graph.num_nodes == 0:
         return []
@@ -132,10 +134,15 @@ def process_clusters(graph: AffinityGraph, labels: np.ndarray,
                             cid_e)
         mviews = np.split(views_m, ptr[1:-1])
         msegs = np.split(segs_m, ptr[1:-1])
-        with trace.span("fit.refine"):
+        # stage fit.refine: the member data, the solve, its readback
+        with trace.stage("fit.refine"):
             mean, dirv = _refine(P0, d0, mviews, msegs, transform, config,
                                  scene_segments, P_cond, cameras, device,
                                  out_info, verbose)
+        trace.count("refine.clusters", C)
+        trace.count("refine.members", n_tot)
+        if out_info is not None:
+            out_info.update(refine_clusters=C, refine_members=n_tot)
         # snap member endpoints onto the refined line before sweeping
         de = dirv[cid_e]
         pts = mean[cid_e] + np.einsum("ij,ij->i", pts - mean[cid_e],

@@ -16,12 +16,15 @@ tests/test_torch_refine.py):
   * host: float64 numpy with a numeric Jacobian (`refine_lines`, a copy) —
     the semantic reference; double precision is comfortable for the normal
     equations.
-  * device: float32 torch on a device (`refine_lines_device`) with EXACT
-    forward-mode Jacobians (torch.func.jvp; finite differences are
-    unusable in f32 — (r(x+eps)-r(x))/eps at pixel scale loses ~half the
-    mantissa).  Matrix products stay in full float32: TF32 (or bf16)
-    truncation costs whole pixels of reprojection error at K ≈ 1500, which
-    is why line3d_tpu asks XLA for Precision.HIGHEST here.
+  * device: float64 torch on a device (`refine_lines_device`) with EXACT
+    forward-mode Jacobians (torch.func.jvp).  line3d_tpu runs it in
+    float32 (a TPU has no float64), but at a 3072-pixel image a float32
+    residual carries ~1e-4 px of rounding (its terms reach ~1e7 and cancel
+    to a pixel), more than the objective changes along a line's poorly
+    seen directions: on the P25 facade a float32 refinement left a
+    converged line 0.5 degrees from the float64 optimum, with the same rms
+    to 1e-5 px.  The card's float64 rate is ample for [C, M, 2, 4]
+    Jacobians, and float64 also keeps the products out of TF32.
 
 The device form runs in blocks of `block_size(C)` clusters.  Across N
 processes (`parallel/multihost.py`) each rank solves its own whole blocks
@@ -158,7 +161,7 @@ def refine_lines(P0, d, Pm, p1, p2, mask, iterations: int = 5,
 
 
 def residuals_t(P0, d, Pm, p1, p2, mask):
-    """torch twin of _residuals (same math, float32 tensors)."""
+    """torch twin of _residuals (same math, on tensors)."""
     ones = torch.ones((P0.shape[0], 1), dtype=P0.dtype, device=P0.device)
     Xa = torch.cat([P0, ones], dim=1)
     Xb = torch.cat([P0 + d, ones], dim=1)
@@ -247,14 +250,14 @@ def _refine_lines_t(P0, d, Pm, p1, p2, mask, iterations: int,
 def refine_lines_device(P0, d, Pm, p1, p2, mask, iterations: int = 5,
                         huber_delta: float = 2.0, damping: float = 1e-6,
                         *, device):
-    """refine_lines in float32 torch on `device`, with exact JVP Jacobians.
+    """refine_lines in float64 torch on `device`, with exact JVP Jacobians.
 
     Same signature and semantics as refine_lines (numpy in, float64 numpy
-    out); ~equal optima (both are rms-gated Gauss-Newton on the same
-    residuals).  Every cluster's solve is independent: this rank solves
+    out); equal optima to rounding (both are rms-gated Gauss-Newton on the
+    same residuals).  Every cluster's solve is independent: this rank solves
     its blocks of `block_size(C)` clusters (`multihost.local_block_range`;
     all of them in one process), each block as one set of tensor
-    operations with no padding, and the float32 results of all ranks are
+    operations with no padding, and the results of all ranks are
     gathered."""
     dev = torch.device(device)
     d_unit = np.asarray(d, np.float64)
@@ -262,9 +265,9 @@ def refine_lines_device(P0, d, Pm, p1, p2, mask, iterations: int = 5,
     blk = block_size(len(d_unit))
     lo, hi = multihost.local_block_range(len(d_unit), blk)
 
-    def t(x, sl, dtype=torch.float32):
+    def t(x, sl, dtype=torch.float64):
         return torch.as_tensor(np.asarray(x)[sl], device=dev).to(dtype)
-    outs = [torch.zeros((0, 8), dtype=torch.float32, device=dev)]
+    outs = [torch.zeros((0, 8), dtype=torch.float64, device=dev)]
     for c0 in range(lo, hi, blk):
         sl = slice(c0, min(c0 + blk, hi))
         P0b, db, rbb, rab = _refine_lines_t(
@@ -274,7 +277,6 @@ def refine_lines_device(P0, d, Pm, p1, p2, mask, iterations: int = 5,
         outs.append(torch.cat([P0b, db, rbb[:, None], rab[:, None]], dim=1))
     out = trace.readback(multihost.allgather_tensor(torch.cat(outs)),
                          "refine.lines")
-    out = out.astype(np.float64)
     return out[:, 0:3], out[:, 3:6], out[:, 6], out[:, 7]
 
 

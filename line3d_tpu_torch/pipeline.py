@@ -361,17 +361,19 @@ class Line3D:
             n_candidates = graph.num_candidates
             by_stage["affinity"] = multihost.GATHERED_BYTES - b
             b = multihost.GATHERED_BYTES
+            diff_info = {}
             with trace.stage("diffusion"):
                 if diffu and graph.num_nodes:
                     # performDiffusion (line3D.cc:1255-1303): the device
                     # backend runs on the Line3D's device, split by edge
                     # over the ranks
                     graph = diffusion_mod.run_diffusion(
-                        graph, cfg, self.verbose, device=self.device)
+                        graph, cfg, self.verbose, device=self.device,
+                        out_info=diff_info)
             by_stage["diffusion"] = multihost.GATHERED_BYTES - b
             # F-H and the line fits: the device refinement or the BA
             b = multihost.GATHERED_BYTES
-            ba_info = {}
+            fit_info = {}
             with trace.stage("fh"):
                 if graph.num_nodes:
                     args = (graph.edges_i, graph.edges_j, graph.edges_w,
@@ -384,7 +386,7 @@ class Line3D:
                         else fh.fh_cluster(*args)
             with trace.stage("fit"):
                 self.result = self._fit(graph, labels, best, scene, cams,
-                                        ba_info) if graph.num_nodes else []
+                                        fit_info) if graph.num_nodes else []
             by_stage["fit"] = multihost.GATHERED_BYTES - b
         lo, hi = multihost.local_range(scene.num_views)
 
@@ -408,6 +410,20 @@ class Line3D:
             t_affinity_pairs=t.get("affinity.pairs", 0.0),
             t_affinity_enum=t.get("affinity.enumerate", 0.0),
             t_affinity_weights=t.get("affinity.weights", 0.0),
+            # the device diffusion's parts (plan: host plan, uploads and
+            # length classes; iterate: the iterations and the weights'
+            # readback) and the line refinement (either backend, or the
+            # BA), 0 where they did not run
+            t_diffusion_plan=t.get("diffusion.plan", 0.0),
+            t_diffusion_iterate=t.get("diffusion.iterate", 0.0),
+            t_refine=t.get("fit.refine", 0.0),
+            # their sizes: the edges the device diffusion took and its
+            # dot's products an iteration on this rank; the clusters and
+            # members refined
+            diffusion_edges=diff_info.get("edges", 0),
+            diffusion_terms=diff_info.get("terms", 0),
+            refine_clusters=fit_info.get("refine_clusters", 0),
+            refine_members=fit_info.get("refine_members", 0),
             # the length of the affinity stage's candidate stream
             affinity_candidates=n_candidates,
             t_match_wait=t_match_wait,
@@ -431,9 +447,9 @@ class Line3D:
             num_processes=nproc, views_local=hi - lo,
             gathered_bytes=int(multihost.GATHERED_BYTES - gathered0),
             gathered_by_stage={k: int(v) for k, v in by_stage.items()})
-        if ba_info:
-            self.stats["ba_rms_before"] = ba_info["ba_rms_before"]
-            self.stats["ba_rms_after"] = ba_info["ba_rms_after"]
+        if "ba_rms_before" in fit_info:
+            self.stats["ba_rms_before"] = fit_info["ba_rms_before"]
+            self.stats["ba_rms_after"] = fit_info["ba_rms_after"]
         if self.verbose:
             print(f"[L3D] {len(self.result)} 3D lines found! "
                   f"(match {self.stats['t_match']:.2f}s, cluster "
@@ -515,10 +531,10 @@ class Line3D:
         return (matches, best, decision, overflow_total, n_rematched,
                 coll_overflow, n_recollin)
 
-    def _fit(self, graph, labels, best, scene, cams, ba_info):
+    def _fit(self, graph, labels, best, scene, cams, fit_info):
         """The line fits of F-H's clusters (the device refinement or the BA
-        when configured); the refined poses un-conditioned into
-        self.refined_poses."""
+        when configured, their sizes and the BA's result in fit_info); the
+        refined poses un-conditioned into self.refined_poses."""
         cfg = self.config
         with trace.span("fit.lines"):
             result = fit_lines.process_clusters(
@@ -526,13 +542,13 @@ class Line3D:
                 scene.max_segments, verbose=self.verbose,
                 refine=cfg.refine_lines or cfg.bundle_adjust_cameras,
                 scene_segments=scene.segments, P_cond=cams.P, cameras=cams,
-                device=self.device, out_info=ba_info)
-        if "R_cond" in ba_info:
+                device=self.device, out_info=fit_info)
+        if "R_cond" in fit_info:
             # un-condition the refined poses: X' = s (R_c X + t_c), so the
             # equivalent original-frame pose of a conditioned camera
             # (R', t') is R_u = R' R_c, t_u = R' t_c + t' / s
             tr = self.transform
-            Rp, tp = ba_info["R_cond"], ba_info["t_cond"]
+            Rp, tp = fit_info["R_cond"], fit_info["t_cond"]
             self.refined_poses = (
                 np.einsum("vij,jk->vik", Rp, tr.R),
                 np.einsum("vij,j->vi", Rp, tr.t) + tp * tr.scale_inv)

@@ -1,5 +1,5 @@
-"""The line refinement at scale: the float32 device form against the float64
-host form on C synthesized clusters of M members.
+"""The line refinement at scale: the device form (float64 torch) against the
+float64 host form on C synthesized clusters of M members.
 
     python3 -m line3d_tpu_torch.utils.refine_bench [C] [--device cpu]
         [--host-subset K] [--out FILE] [--expect FILE]

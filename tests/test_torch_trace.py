@@ -21,9 +21,13 @@ STATS_KEYS = {
     "probe_k_export", "m_total", "collinearity_overflow",
     "views_recollin_exact", "num_processes", "views_local",
     "gathered_bytes", "gathered_by_stage"}
+# the noisy path's parts and sizes (0 where they do not run)
+NOISY_KEYS = {"t_diffusion_plan", "t_diffusion_iterate", "t_refine",
+              "diffusion_edges", "diffusion_terms", "refine_clusters",
+              "refine_members"}
 # what the recorder adds to them, on or off
 NEW_KEYS = {"t_affinity_pairs", "t_affinity_enum", "t_affinity_weights",
-            "t_match_wait", "readback_syncs", "readback_bytes"}
+            "t_match_wait", "readback_syncs", "readback_bytes"} | NOISY_KEYS
 # each stage span and the stats key it gives
 STAGES = {"scene": "t_setup", "neighbors": "t_graph",
           "collinearity": "t_collin", "matching": "t_match",
@@ -32,6 +36,15 @@ STAGES = {"scene": "t_setup", "neighbors": "t_graph",
           "affinity.pairs": "t_affinity_pairs",
           "affinity.enumerate": "t_affinity_enum",
           "affinity.weights": "t_affinity_weights"}
+# the noisy path's stage spans: their parent and the stats key each gives
+NOISY_STAGES = {"diffusion.plan": ("diffusion", "t_diffusion_plan"),
+                "diffusion.iterate": ("diffusion", "t_diffusion_iterate"),
+                "fit.refine": ("fit.lines", "t_refine")}
+# a noisy capture's model with the device forms of both stages (float32
+# torch on CPU tensors; "auto" takes the float64 host forms on the CPU)
+NOISY = L3DConfig(use_collinearity=True, perform_diffusion=True,
+                  refine_lines=True, diffusion_backend="device",
+                  refine_backend="device")
 # the parent of each span name a model opens
 PARENT = {"scene": "model", "neighbors": "model", "collinearity": "model",
           "matching": "model", "affinity": "model", "diffusion": "model",
@@ -88,6 +101,9 @@ def test_off_records_nothing_and_keeps_every_stats_key(off):
     assert trace.collect()["counters"] == {}
     assert set(l3d.stats) == STATS_KEYS | NEW_KEYS | {"affinity_candidates"}
     assert l3d.stats["affinity_candidates"] > 0
+    # neither diffusion nor refinement ran
+    assert {k: l3d.stats[k] for k in NOISY_KEYS} == dict.fromkeys(
+        NOISY_KEYS, 0)
     # the readbacks count even off, and the stage times are there
     assert l3d.stats["readback_syncs"] > 0
     assert l3d.stats["readback_bytes"] > 0
@@ -231,3 +247,38 @@ def test_readback_is_the_copy_it_replaces():
         got = trace.collect()
     assert got["counters"] == {"syncs.unit": 1, "dtoh_bytes.unit": 16}
     assert [s["name"] for s in got["spans"]] == ["wait.unit"]
+
+
+def test_the_noisy_stages_are_stage_spans_of_their_stats():
+    off = _model(NOISY)
+    (l3d,), got = _recorded(config=NOISY)
+    assert set(l3d.stats) == set(off.stats)
+    spans = {s["name"]: s for s in got["spans"]}
+    for name, (parent, key) in NOISY_STAGES.items():
+        assert spans[name]["parent"] == spans[parent]["id"], name
+        assert l3d.stats[key] == spans[name]["host_s"] > 0.0, name
+        assert off.stats[key] > 0.0, name
+    st, c = l3d.stats, got["counters"]
+    assert st["t_diffusion"] >= st["t_diffusion_plan"] + \
+        st["t_diffusion_iterate"]
+    # the diffusion keeps the graph's pattern: it took every edge
+    assert st["diffusion_edges"] == st["num_edges"] == c["diffusion.edges"]
+    assert st["diffusion_terms"] == c["diffusion.terms"] > 0
+    assert st["refine_clusters"] == c["refine.clusters"] >= st["num_lines"]
+    assert st["refine_members"] == c["refine.members"] >= sum(
+        len(ln.views2d) for ln in l3d.result) > 0
+    # the sizes do not hang on the recorder
+    for k in ("diffusion_edges", "diffusion_terms", "refine_clusters",
+              "refine_members"):
+        assert off.stats[k] == st[k], k
+
+
+def test_the_host_forms_time_the_refinement_only():
+    l3d = _model(L3DConfig(use_collinearity=True, perform_diffusion=True,
+                           refine_lines=True))
+    st = l3d.stats
+    assert st["t_diffusion"] > 0.0 and st["t_refine"] > 0.0
+    assert st["refine_clusters"] > 0
+    for k in ("t_diffusion_plan", "t_diffusion_iterate", "diffusion_edges",
+              "diffusion_terms"):
+        assert st[k] == 0, k
