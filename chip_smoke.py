@@ -2840,7 +2840,7 @@ def phase_scale(card):
 # test_pair_valid_kernel_on_second_card, which needs two cards.
 CUDA_TESTS = ["tests/test_torch_kernels_cuda.py", "-q", "-m", "cuda",
               "--noconftest", "-p", "no:cacheprovider"]
-CUDA_TESTS_PASSED = 46            # on one card; one more on two or more
+CUDA_TESTS_PASSED = 47            # on one card; one more on two or more
 CUDA_TESTS_TIMEOUT_S = 600
 
 

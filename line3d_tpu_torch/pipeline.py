@@ -410,9 +410,10 @@ class Line3D:
             t_affinity_pairs=t.get("affinity.pairs", 0.0),
             t_affinity_enum=t.get("affinity.enumerate", 0.0),
             t_affinity_weights=t.get("affinity.weights", 0.0),
-            # the device diffusion's parts (plan: host plan, uploads and
-            # length classes; iterate: the iterations and the weights'
-            # readback) and the line refinement (either backend, or the
+            # the device diffusion's parts (plan: the uploads, the sorts
+            # and the length classes on the device; iterate: the
+            # iterations and the readback of the weights and edge ids)
+            # and the line refinement (either backend, or the
             # BA), 0 where they did not run
             t_diffusion_plan=t.get("diffusion.plan", 0.0),
             t_diffusion_iterate=t.get("diffusion.iterate", 0.0),

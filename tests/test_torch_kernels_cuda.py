@@ -19,7 +19,9 @@ memory and at M = 4096, which does not; K6 chain sums within
 peak.CHAIN_RTOL of the twin's.  Device selection (parallel/sharded.py):
 the card's buffer equal to the CPU's, and equal matches to the host
 selection's, bit for bit.  Device diffusion: tests/test_cluster.py's
-rtol 2e-4 / atol 1e-7 against the float64 host; device refine:
+rtol 2e-4 / atol 1e-7 against the float64 host; its plan, built on the
+card, equal to numpy lexsorts array for array at over a million edges,
+its class splits reading back under 4 KB; device refine:
 tests/test_refine.py's criteria against the host.  The recorder
 (trace.py): on one exact model of the 25-view facade and clutter scenes,
 its synchronisations and device-to-host bytes equal to the sync debug
@@ -37,7 +39,7 @@ import numpy as np
 import pytest
 import torch
 
-from line3d_tpu_torch import Line3D, L3DConfig
+from line3d_tpu_torch import Line3D, L3DConfig, trace
 from line3d_tpu_torch.io.writers import compare_txt
 from line3d_tpu_torch.cluster import diffusion as td, \
     diffusion_device as tdd
@@ -49,8 +51,9 @@ from line3d_tpu_torch.utils import peak as k6
 from line3d_tpu_torch.utils.synthetic import make_scene
 from torch_port_helpers import AFFINITY_ORDER_CASES, \
     HOUSE10_DIFFUSION_OUTSIDE, HOUSE10_OUTSIDE, SELECTION_KINDS, \
-    affinity_enum_inputs, affinity_random_case, assert_same_stream, \
-    pair_dense_ieee, selection_tables, stereo_views
+    affinity_enum_inputs, affinity_random_case, \
+    assert_classes_equal_twin, assert_plan_equals_twin, assert_same_stream, \
+    diffusion_plan_twin, pair_dense_ieee, selection_tables, stereo_views
 
 pytestmark = pytest.mark.cuda
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -554,6 +557,54 @@ def test_device_diffusion_on_the_card_matches_host(dev, mode):
     np.testing.assert_array_equal(got[1], host[1])
     np.testing.assert_allclose(got[2], host[2], rtol=2e-4, atol=1e-7)
     np.testing.assert_array_equal(fn(i, j, w, n, device=dev)[2], got[2])
+
+
+def test_device_diffusion_plan_on_the_card_equals_lexsorts(dev,
+                                                         monkeypatch):
+    """One reference-mode diffusion of a random symmetric graph of ~1.2 M
+    entries, shuffled: the plan built on the card equals the numpy
+    lexsort twin array for array, both length-class splits equal the
+    flatnonzero twin's, the returned edge order is the twin's, and the
+    recorder counts under 4 KB at `diffusion.classes`."""
+    rng = np.random.default_rng(19)
+    n = 60_000
+    a, b = rng.integers(0, n, 1_300_000), rng.integers(0, n, 1_300_000)
+    pairs = np.unique(np.stack([a[a < b], b[a < b]], 1), axis=0)
+    wu = rng.uniform(0.05, 1.0, len(pairs))
+    perm = rng.permutation(2 * len(pairs))
+    i = np.concatenate([pairs[:, 0], pairs[:, 1]]).astype(np.int64)[perm]
+    j = np.concatenate([pairs[:, 1], pairs[:, 0]]).astype(np.int64)[perm]
+    w = np.concatenate([wu, wu])[perm]
+    assert len(w) >= 1_000_000
+    plans, sums = [], []
+    build, init = tdd.build_plan, tdd._PairSums.__init__
+
+    def spy_build(*a, **k):
+        plans.append(build(*a, **k))
+        return plans[-1]
+
+    def spy_init(self, *a, **k):
+        init(self, *a, **k)
+        sums.append(self)
+    monkeypatch.setattr(tdd, "build_plan", spy_build)
+    monkeypatch.setattr(tdd._PairSums, "__init__", spy_init)
+    with trace.recording():
+        got = tdd.diffuse_reference_device(i, j, w, n, device=dev)
+        torch.cuda.synchronize()
+        counters = trace.collect()["counters"]
+    twin = diffusion_plan_twin(i, j, w, n)
+    (p,) = plans
+    assert p.ri.device.type == "cuda"
+    assert_plan_equals_twin(p, twin)
+    deg = twin["deg"]
+    assert len(sums) == 2
+    assert_classes_equal_twin(sums[0], deg)
+    assert_classes_equal_twin(sums[1], np.minimum(deg[twin["rj"]],
+                                                  deg[twin["ri"]]))
+    np.testing.assert_array_equal(got[0], twin["ri"])
+    np.testing.assert_array_equal(got[1], twin["rj"])
+    assert counters["syncs.diffusion.classes"] == 2
+    assert counters["dtoh_bytes.diffusion.classes"] < 4096
 
 
 def test_device_refine_on_the_card_matches_host(dev):

@@ -464,3 +464,53 @@ AFFINITY_ORDER_CASES = {
                                [(1, 3, 1), (2, 3, 2), (3, 5, 0), (5, 1, 2)],
                                [(3, 1, 2), (3, 1, 1)]),
 }
+
+
+def diffusion_plan_twin(edges_i, edges_j, edges_w, num_nodes):
+    """The device diffusion's plan (`diffusion_device.build_plan`) by numpy
+    lexsorts on the host: a dict of its arrays under the plan's names."""
+    order_r = np.lexsort((edges_j, edges_i))
+    ri, rj = edges_i[order_r], edges_j[order_r]
+    order_c = np.lexsort((edges_i, edges_j))
+    deg = np.bincount(ri, minlength=num_nodes)
+    return dict(
+        rw=edges_w[order_r].astype(np.float32),
+        wv_col=edges_w[order_c].astype(np.float32),
+        ri=ri, rj=rj, deg=deg,
+        rowstart=np.concatenate([[0], np.cumsum(deg)[:-1]]).astype(np.int64),
+        order_col=np.lexsort((ri, rj)).astype(np.int64),
+        ci=edges_i[order_c].astype(np.int64))
+
+
+def length_classes_twin(n):
+    """(terms, [(L, rows)]) of `_PairSums.split` on the host: the sum of n
+    and, for each power of two L in ascending order, the rows with n in
+    (L/2, L] by np.flatnonzero."""
+    n = np.asarray(n)
+    classes, top, L = [], int(n.max(initial=0)), 1
+    while top and L // 2 < top:
+        sel = np.flatnonzero((n > L // 2) & (n <= L))
+        if len(sel):
+            classes.append((L, sel))
+        L *= 2
+    return int(n.sum()), classes
+
+
+def assert_plan_equals_twin(p, twin):
+    """Every array of a device `DiffusionPlan` equal to the twin's, dtype
+    and value."""
+    for name, want in twin.items():
+        got = getattr(p, name).cpu().numpy()
+        assert got.dtype == want.dtype, (name, got.dtype, want.dtype)
+        np.testing.assert_array_equal(got, want, err_msg=name)
+
+
+def assert_classes_equal_twin(sums, n_host):
+    """A `_PairSums`' terms and length classes equal to
+    `length_classes_twin` of its lengths."""
+    terms, want = length_classes_twin(n_host)
+    assert sums.terms == terms
+    assert len(sums.classes) == len(want)
+    for (rows, c), (L, sel) in zip(sums.classes, want):
+        np.testing.assert_array_equal(c.cpu().numpy(), np.arange(L))
+        np.testing.assert_array_equal(rows.cpu().numpy(), sel)
