@@ -120,8 +120,9 @@ exits non-zero):
                gloo on 127.0.0.1), each a process of its own on
                cuda:{rank % cards} (one card: two ranks share it): each
                rank matches and collinearises only its own views (K1 and
-               the scoring kernel once per own view, K4 once) and
-               all-gathers what they read back; the exact run and the
+               the scoring kernel once per own view, K4 once, and once
+               more for the views every rank re-runs at exact capacity)
+               and all-gathers what they read back; the exact run and the
                capped run (capacity_probe=False: the owners re-match the
                overflowing views) must write phase 8's TXT byte for byte
                on every rank, and each rank's K4 lists must equal the
@@ -136,13 +137,15 @@ exits non-zero):
                per-cluster tensors for its own share only.
  16. scale     the facade at 256 views (S = 1408), exact: (a) one cold and
                one warm run in this process, its launches counted (K1 and
-               the scoring kernel once a view, K4 once), the model exact
-               (no match overflow left, no collinear pair dropped after
-               the fallback) with lines; (b) K1, the scoring kernel and K4
-               against their twins at that run's shapes, as in phase cli:
-               K1 and the scoring kernel at views 0, 128 and 255, K4 on
-               all 256 views; (c) the same model over max(2, cards) ranks,
-               one run each, every rank's TXT (a)'s byte for byte.
+               the scoring kernel once a view, K4 once and once more
+               for an exact re-run), the model exact
+               (no match overflow left, every view the collinearity's
+               first pass dropped pairs of re-run) with lines; (b) K1, the
+               scoring kernel and K4 against their twins at that run's
+               shapes, as in phase cli: K1 and the scoring kernel at views
+               0, 128 and 255, K4 on all 256 views; (c) the same model
+               over max(2, cards) ranks, one run each, every rank's TXT
+               (a)'s byte for byte.
  17. scalefit  phases facaded's and facadeba's configurations on the
                facade at 256 views: one cold and one counted warm run
                each, the device diffusion run again bit-equal and (true
@@ -664,12 +667,14 @@ def collin_random(seed, V, S, n_chains):
 
 def phase_k4(scene):
     """K4 against its plain twin on the card: all 25 facade views at the
-    main path's quota (8) and at quota 1 (drops, then the exact fallback),
-    the 512-segment chain (the cap bites), S = 100 with a fully masked
-    view, and two views at the P25 stress scene's S = 2,990.  Keys, counts
-    and dropped_per_view must be identical; weights are compared bit for
-    bit, and any that differ must be within K4_W_ATOL.  Then the times and
-    the bound at the main path's call."""
+    main path's quota (8), at quota 1 (drops, then the exact re-run of
+    `collinearity_maps_fast`, whose maps must equal the quota-8 maps bit
+    for bit) and with no quota at a capacity of the largest count (the
+    re-run's call), the 512-segment chain (the cap bites), S = 100 with a
+    fully masked view, and two views at the P25 stress scene's S = 2,990.
+    Keys, counts and dropped_per_view must be identical; weights are
+    compared bit for bit, and any that differ must be within K4_W_ATOL.
+    Then the times and the bound at the main path's call."""
     import torch
     from line3d_tpu_torch.match import collinearity as col, \
         collinearity_cuda as k4
@@ -680,16 +685,23 @@ def phase_k4(scene):
     s100, m100 = collin_random(100, 3, 100, 6)
     m100[1] = False
     m100[0, ::7] = False
-    cases = [("facade", scene.segments_t, scene.seg_mask_t, 8),
-             ("facade quota 1", scene.segments_t, scene.seg_mask_t, 1),
-             ("chain 512", t(chain[0]), t(chain[1]), 8),
-             ("S=100, view 1 masked", t(s100), t(m100), 8),
-             ("S=2990", *map(t, collin_random(2990, 2, 2990, 40)), 8)]
+    blk = k4.block_quota(scene.max_segments, 8)[0]
+    cap = int(col.collinearity_compact_all(scene.segments_t,
+                                           scene.seg_mask_t, sig2)[2].max())
+    cases = [("facade", scene.segments_t, scene.seg_mask_t, 8, None),
+             ("facade quota 1", scene.segments_t, scene.seg_mask_t, 1, None),
+             ("facade exact capacity", scene.segments_t, scene.seg_mask_t,
+              blk, cap),
+             ("chain 512", t(chain[0]), t(chain[1]), 8, None),
+             ("S=100, view 1 masked", t(s100), t(m100), 8, None),
+             ("S=2990", *map(t, collin_random(2990, 2, 2990, 40)), 8, None)]
     res, n_differ, max_diff = {}, 0, 0.0
-    for name, segs, masks, quota in cases:
-        got = col.collinearity_compact_all(segs, masks, sig2, quota=quota)
+    for name, segs, masks, quota, capacity in cases:
+        got = col.collinearity_compact_all(segs, masks, sig2, quota=quota,
+                                           capacity=capacity)
         want = col.collinearity_compact_all_plain(segs, masks, sig2,
-                                                  quota=quota)
+                                                  quota=quota,
+                                                  capacity=capacity)
         g = [x.cpu().numpy() for x in got]
         w = [x.cpu().numpy() for x in want]
         S = segs.shape[1]
@@ -712,11 +724,20 @@ def phase_k4(scene):
         require(diff <= K4_W_ATOL, f"K4 {name}: weights differ")
         if name == "facade quota 1":
             require(mg.dropped_total > 0, "K4 quota 1 dropped nothing")
-            fixed, n_views = col.apply_collinearity_exact_fallback(
-                mg, segs, masks, 2.0)
-            log(f"[kernels] K4 quota 1: the exact fallback re-derived "
-                f"{n_views} views")
-            require(fixed.dropped_total == 0, "K4 fallback left drops")
+            exact = col.collinearity_maps_fast(segs, masks, 2.0, quota=1)
+            main = col.collinearity_maps_fast(segs, masks, 2.0)
+            same = all(np.array_equal(getattr(exact, f), getattr(main, f))
+                       for f in ("flat_view", "flat_i", "flat_j", "flat_w"))
+            log(f"[kernels] K4 quota 1: {len(exact.views_exact)} views "
+                f"re-run at exact capacity ({len(main.views_exact)} at "
+                f"quota 8); the maps equal quota 8's bit for bit {same}")
+            require(np.array_equal(exact.views_exact,
+                                   np.flatnonzero(mg.dropped_per_view))
+                    and same, "K4 quota 1: the exact re-run's maps differ "
+                    "from quota 8's")
+        if name == "facade exact capacity":
+            require(bool((g[2] <= cap).all()),
+                    "K4: a view's candidates outnumber the capacity")
         if name == "chain 512":
             require(bool((g[0] >= 0).all()) and g[0].shape[1] == 8192,
                     "K4: the cap did not bite on the chain")
@@ -1050,12 +1071,14 @@ _ENUM_CALLS = {}
 def _counted(run, tag, wide=True):
     """run() with the model path's kernel launch counts set to 0 just
     before; fails unless each kernel was launched (the scoring kernel at
-    M > 256 when `wide`, at any M otherwise), K4 once and the affinity
-    enumeration once, on the card, with its four launches.  Keeps that
-    enumeration's call under `tag` for _check_path_kernels.  Returns (run's
-    result, the counts just after)."""
+    M > 256 when `wide`, at any M otherwise), K4 once for the first pass
+    and once more if the collinearity re-ran views at exact capacity, and
+    the affinity enumeration once, on the card, with its four launches.
+    Keeps that enumeration's call under `tag` for _check_path_kernels.
+    Returns (run's result, the counts just after)."""
     import torch
     from line3d_tpu_torch.cluster import affinity, affinity_cuda as ka
+    from line3d_tpu_torch.match import collinearity
     enum = affinity.enumerate_candidates
     calls = []
 
@@ -1068,15 +1091,17 @@ def _counted(run, tag, wide=True):
     _launch_counts(zero=True)
     affinity.enumerate_candidates = timed
     try:
-        out = run()
+        with spy(collinearity, "_rerun_exact", []) as reruns:
+            out = run()
     finally:
         affinity.enumerate_candidates = enum
     counts = _launch_counts()
     require(counts["pair_valid"] > 0 and counts["collin_pairs"] > 0
             and counts["score_wide" if wide else "score"] > 0,
             f"{tag}: a kernel of the path was not launched")
-    require(counts["collin_pairs"] == 1,
-            f"{tag}: K4 ran {counts['collin_pairs']} times in one model")
+    require(len(reruns) <= 1 and counts["collin_pairs"] == 1 + len(reruns),
+            f"{tag}: K4 ran {counts['collin_pairs']} times in one model "
+            f"with {len(reruns)} exact re-runs")
     require(len(calls) == 1 and torch.device(calls[0][0][-1]).type == "cuda"
             and counts["affinity_enum"] == AFFINITY_ENUM_LAUNCHES,
             f"{tag}: the affinity enumeration ran {len(calls)} times, "
@@ -1455,7 +1480,7 @@ def phase_stress(card):
         f"probe_m_total {st['probe_m_total']}, m_total per view {mt}, "
         f"match_overflow {st['match_overflow']}, views_rematched_uncapped "
         f"{st['views_rematched_uncapped']}, collinearity overflow "
-        f"{st['collinearity_overflow']} (views re-derived "
+        f"{st['collinearity_overflow']} (views re-run exact "
         f"{st['views_recollin_exact']}), {st['num_best']} best matches, "
         f"{st['num_lines']} lines")
     require(st["match_overflow"] == 0 and
@@ -1463,7 +1488,7 @@ def phase_stress(card):
             "stress: match overflow remains")
     require(st["collinearity_overflow"] == 0 or
             st["views_recollin_exact"] > 0,
-            "stress: collinearity overflow remains")
+            "stress: collinear pairs dropped and no view re-run")
     require(scene.max_segments == 3072 and st["num_lines"] > 0,
             "stress: not the P25 stress shape, or no model")
     return dict(cold=t_cold, warm=t_warm, counts=counts,
@@ -2144,7 +2169,7 @@ def _reduced_facade_card_vs_cpu(card):
     for l3d, where in ((g, "card"), (c, "CPU")):
         require(l3d.stats["match_overflow"] == 0 and
                 l3d.stats["views_recollin_exact"] == 1,
-                f"facade6: the {where} run overflowed or did not re-derive "
+                f"facade6: the {where} run overflowed or did not re-run "
                 "view 5's collinearity")
 
     diffs = compare.verified_differences(c.matches, g.matches)
@@ -2473,7 +2498,7 @@ def multiproc_rank(spec: str) -> int:
             out["counts"]["score"] == hi - lo,
             f"{tag}: K1 or the scoring kernel ran for other views than "
             f"its own {hi - lo}")
-    pairs, w, count = (x.cpu().numpy() for x in k4calls[-1][2])
+    pairs, w, count = (x.cpu().numpy() for x in k4calls[0][2])
     np.savez(os.path.join(outdir, f"k4_{rank}.npz"), pairs=pairs, w=w,
              count=count)
     with open(os.path.join(outdir, f"exact_{rank}.txt"), "w") as f:
@@ -2709,20 +2734,18 @@ def _scale_run(cfg, scene, cams, dev=None):
     return l3d, time.perf_counter() - t0
 
 
-def _scale_exact(st, l3d, tag):
+def _scale_exact(st, tag):
     """The exactness fields of a scale run; fails unless the model is
-    exact (no match overflow left, no collinear pair dropped after the
-    fallback) and has lines."""
+    exact (no match overflow left, every view the collinearity's first
+    pass dropped pairs of re-run at exact capacity) and has lines."""
     ex = {k: st[k] for k in ("match_overflow", "views_rematched_uncapped",
                              "probe_m_total", "collinearity_overflow",
                              "views_recollin_exact")}
-    ex["collin_dropped_left"] = int(l3d.scene.collin.dropped_total)
     require(st["match_overflow"] == 0 or st["views_rematched_uncapped"] > 0,
             f"{tag}: match overflow left")
-    require(ex["collin_dropped_left"] == 0 and
-            (st["collinearity_overflow"] == 0) ==
+    require((st["collinearity_overflow"] == 0) ==
             (st["views_recollin_exact"] == 0),
-            f"{tag}: collinear pairs dropped and not re-derived")
+            f"{tag}: collinear pairs dropped and not re-run")
     require(st["num_lines"] > 0, f"{tag}: no lines")
     return ex
 
@@ -2749,7 +2772,7 @@ def scale_rank(spec: str) -> int:
         lambda: _scale_run(cfg, scene, cams, scene.device), tag)
     peak = torch.cuda.max_memory_allocated(scene.device)
     st = l3d.stats
-    ex = _scale_exact(st, l3d, tag)
+    ex = _scale_exact(st, tag)
     require(counts["pair_valid"] == counts["score"] == hi - lo ==
             st["views_local"], f"{tag}: K1 or the scoring kernel ran for "
             f"other views than its own {hi - lo}")
@@ -2795,7 +2818,7 @@ def phase_scale(card):
     (l3d, warm), counts = _counted(lambda: _scale_run(cfg, scene, cams),
                                    "scale")
     st = l3d.stats
-    ex = _scale_exact(st, l3d, "scale")
+    ex = _scale_exact(st, "scale")
     require(counts["pair_valid"] == counts["score"] == V,
             f"scale: K1 or the scoring kernel did not run once a view")
     mt, mc = np.unique(st["m_total"], return_counts=True)
@@ -3080,7 +3103,7 @@ def phase_clutter(card):
                     counts["score_wide"] == 0,
                     f"{tag}: not a capped pass at m_total 256")
         else:
-            _scale_exact(st, l3d, tag)
+            _scale_exact(st, tag)
         require(counts["pair_valid"] == CLUTTER_VIEWS,
                 f"{tag}: K1 did not run once a view")
         held = _check_path_kernels(l3d, tag, views=CLUTTER_HELD_VIEWS,

@@ -42,6 +42,7 @@ import torch
 
 from ..config import L3DConfig
 from ..core.cameras import CameraSet
+from ..match.collinearity import CollinMaps
 from ..match.engine import BestMatches
 from ..native.load import get_lib
 from ..parallel import multihost
@@ -473,7 +474,7 @@ def _correspondence_pairs(matches: list, num_views: int, max_segments: int):
 
 
 def build_affinity_graph(best: BestMatches, matches: list,
-                         collin: list | None, cams: CameraSet,
+                         collin: CollinMaps | None, cams: CameraSet,
                          config: L3DConfig, max_segments: int,
                          verbose: bool = False,
                          device=None) -> AffinityGraph:
@@ -484,8 +485,7 @@ def build_affinity_graph(best: BestMatches, matches: list,
     S = max_segments
     key_of = best.view.astype(np.int64) * S + best.seg.astype(np.int64)
 
-    has_collin = collin is not None and any(len(c) for c in collin)
-    if has_collin:
+    if collin is not None and len(collin.flat_i):
         return _build_affinity_graph_native(
             best, matches, key_of, collin, cams, config, S, verbose, device)
 

@@ -31,13 +31,27 @@ def cameras_from_reference(cameras) -> CameraSet:
         uncertainty_upper_px=cameras.uncertainty_upper_px)
 
 
+def _config_from_reference(cfg) -> L3DConfig:
+    """The port's L3DConfig with the reference's values.  A reference field
+    the port has no counterpart of must hold its default, the behaviour the
+    port implements (its collinearity maps, for one, are always exact);
+    any other value raises."""
+    own = {f.name for f in dataclasses.fields(L3DConfig)}
+    for f in dataclasses.fields(cfg):
+        if f.name not in own and getattr(cfg, f.name) != f.default:
+            raise ValueError(f"{f.name}={getattr(cfg, f.name)!r} has no "
+                             "counterpart in the port, which implements "
+                             f"only its default {f.default!r}")
+    return L3DConfig(**{k: v for k, v in dataclasses.asdict(cfg).items()
+                        if k in own})
+
+
 def scene_from_reference(scene, cameras, device="cuda"):
     """(Scene, CameraSet) of the port from the reference's, with the scene's
     tensors on `device`."""
     cams = cameras_from_reference(cameras)
     cfg = getattr(scene, "config", None)
-    config = L3DConfig(**dataclasses.asdict(cfg)) if cfg is not None \
-        else L3DConfig()
+    config = L3DConfig() if cfg is None else _config_from_reference(cfg)
     out = Scene(segments=np.array(scene.segments, np.float32),
                 seg_mask=np.array(scene.seg_mask, bool),
                 seg_count=np.array(scene.seg_count, np.int32),

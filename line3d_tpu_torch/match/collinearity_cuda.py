@@ -11,7 +11,10 @@ the tensors' device.  There is no fallback.
 Both gate on squared distances with a relative widening of 1e-4, so the
 keep plane is a superset of `collinearity.collinearity_matrix(...) > 0`; the
 affinity is recomputed and regated at each block's first `quota`
-candidates.
+candidates.  The main path (`collinearity.collinearity_maps_fast`) launches
+it once at the config's quota and cap and, where that dropped pairs,
+once more for those views with quota = blk and a capacity of their largest
+candidate count, so that every candidate is regated and kept.
 """
 from __future__ import annotations
 

@@ -14,6 +14,7 @@ import torch
 
 from .config import L3DConfig, DEFAULT_CONFIG
 from .core.cameras import CameraSet
+from .match.collinearity import CollinMaps
 from .parallel import multihost
 
 
@@ -40,7 +41,7 @@ class Scene:
     seg_count: np.ndarray
     cameras: CameraSet
     wp_lists: list | None = None
-    collin: list | None = None
+    collin: CollinMaps | None = None
     config: L3DConfig = dataclasses.field(default_factory=lambda: DEFAULT_CONFIG)
     device: torch.device | str = "cuda"
 

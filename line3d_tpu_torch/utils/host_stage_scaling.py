@@ -154,7 +154,6 @@ def synthesize(V: int = 1000, segs_per_view: int = 2500, span: int = 20,
     # collinearity: segments (2m, 2m + 1) of each view are partners
     # (~1 partner a segment, the density measured on real scenes)
     nseg = np.bincount(v_r, minlength=V)
-    cm = CollinMaps([{} for _ in range(V)])
     fv, fi, fj = [], [], []
     for v in range(V):
         i = np.arange(0, nseg[v] - 1, 2)
@@ -165,13 +164,8 @@ def synthesize(V: int = 1000, segs_per_view: int = 2500, span: int = 20,
     flat_i = np.concatenate(fi).astype(np.int32)
     flat_j = np.concatenate(fj).astype(np.int32)
     order = np.lexsort((flat_j, flat_i, flat_view))
-    cm.flat_view, cm.flat_i, cm.flat_j = (x[order] for x in
-                                          (flat_view, flat_i, flat_j))
-    cm.flat_w = np.full(len(order), 0.7, np.float32)
-    w = float(cm.flat_w[0]) if len(order) else 0.0
-    for v, i, j in zip(cm.flat_view.tolist(), cm.flat_i.tolist(),
-                       cm.flat_j.tolist()):
-        cm[v].setdefault(i, {})[j] = w
+    cm = CollinMaps(V, flat_view[order], flat_i[order], flat_j[order],
+                    np.full(len(order), 0.7, np.float32))
     return cams, cfg, tr, best, matches, cm, SEGMENT_SLOTS
 
 

@@ -27,10 +27,10 @@ one cold run, then `--warm` runs with the segments shifted by
 (per rank) gives the cold and every warm trial's seconds, images/s of the
 best, the lines, every trial's `t_*`, the exactness fields
 (`match_overflow`, `views_rematched_uncapped`, `probe_m_total`,
-`collinearity_overflow`, `views_recollin_exact`, the collinear pairs
-still dropped after the fallback), each warm trial's `warm_stats` (the
-fields `line3d_tpu`'s scripts/stress_exact_profile.py prints a trial:
-every `t_*`, `probe_*`, overflow, re-match and re-derivation count; so
+`collinearity_overflow`, `views_recollin_exact`), each warm trial's
+`warm_stats` (the fields `line3d_tpu`'s scripts/stress_exact_profile.py
+prints a trial: every `t_*`, `probe_*`, overflow, re-match and re-run
+count; so
 `25 --scene clutter` is that script's counterpart), the kernels' launches
 in each warm run
 (the wrappers' `LAUNCHES`), the affinity enumeration's stream length, `torch.cuda.max_memory_allocated` over the V's
@@ -308,7 +308,6 @@ def profile_views(V: int, device, n_warm: int = 3, out: str | None = None,
         affinity_candidates=st["affinity_candidates"],
         views_local=st["views_local"],
         m_total={str(m): int(c) for m, c in zip(*m_totals)},
-        collin_dropped_left=int(l3d.scene.collin.dropped_total),
         **{k: st[k] for k in EXACTNESS},
         gathered_bytes=st["gathered_bytes"],
         gathered_by_stage=st["gathered_by_stage"],

@@ -260,6 +260,8 @@ def test_result_stem_and_config_equal_reference(flags, stem):
     c_t = dataclasses.asdict(tcli._config_from_args(a_t))
     c_j = dataclasses.asdict(jcli._config_from_args(a_j))
     c_j["stable_shapes"] = c_t["stable_shapes"]    # TPU-only, not carried
+    # the port's collinearity is exact by construction: no switch
+    del c_j["collinearity_exact_fallback"]
     assert c_t == c_j
     assert a_t.device == "cuda"
     assert {k for k in vars(a_j)} | {"device"} == {k for k in vars(a_t)}

@@ -102,24 +102,22 @@ def test_collin_maps_match_reference(kind):
                                   want.dropped_per_view)
 
 
-def test_exact_fallback_repairs_dropped_views():
-    """With a one-pair block quota the export drops pairs; the exact
-    fallback re-derives those views from the dense matrix, in both
-    packages, to the same maps."""
+def test_exact_rerun_equals_the_reference_fallback():
+    """With a one-pair block quota the first pass drops pairs; the port
+    runs those views again at exact capacity, to line3d_tpu's capped export
+    followed by its dense fallback and to the port's own default-quota
+    maps, and keeps line3d_tpu's first-pass counters."""
     segs, mask = _scene_inputs("families")
     want = jc.collinearity_maps_fast(segs, mask, 2.0, quota=1)
+    dropped = np.array(want.dropped_per_view)
+    want, nw = jc.apply_collinearity_exact_fallback(want, segs, mask, 2.0)
     got = tc.collinearity_maps_fast(T(segs), T(mask), 2.0, quota=1)
     assert got.dropped_total > 0
-    np.testing.assert_array_equal(got.dropped_per_view,
-                                  want.dropped_per_view)
-    want, nw = jc.apply_collinearity_exact_fallback(want, segs, mask, 2.0)
-    got, ng = tc.apply_collinearity_exact_fallback(got, T(segs), T(mask),
-                                                   2.0)
-    assert ng == nw > 0 and got.dropped_total == 0
+    np.testing.assert_array_equal(got.dropped_per_view, dropped)
+    np.testing.assert_array_equal(got.views_exact, np.flatnonzero(dropped))
+    assert len(got.views_exact) == nw > 0
     _assert_same_maps(got, want)
-    full = tc.collinearity_maps_fast(T(segs), T(mask), 2.0)
-    np.testing.assert_array_equal(got.flat_i, full.flat_i)
-    np.testing.assert_array_equal(got.flat_j, full.flat_j)
+    _assert_same_maps(got, tc.collinearity_maps_fast(T(segs), T(mask), 2.0))
 
 
 def test_collin_keep_dispatch_cpu_uses_plain_twin():

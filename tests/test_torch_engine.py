@@ -220,6 +220,30 @@ def test_scene_from_reference_is_bit_identical():
                                       getattr(syn.cameras, name))
 
 
+def test_scene_from_reference_carries_the_config():
+    """Every shared field carries over; a field the port lacks carries over
+    at its default only, so the reference's lossy
+    `collinearity_exact_fallback=False` raises."""
+    cfg = JConfig(min_baseline=0.3, collinearity_block_quota=4)
+    scene = dataclasses.replace(make_scene(num_views=3).scene, config=cfg)
+    got = convert.scene_from_reference(scene, make_scene(3).cameras,
+                                       "cpu")[0].config
+    want = dataclasses.asdict(cfg)
+    del want["collinearity_exact_fallback"]
+    assert dataclasses.asdict(got) == want
+    with pytest.raises(ValueError, match="collinearity_exact_fallback"):
+        convert.scene_from_reference(dataclasses.replace(scene, config=(
+            dataclasses.replace(cfg, collinearity_exact_fallback=False))),
+            make_scene(3).cameras, "cpu")
+
+    @dataclasses.dataclass(frozen=True)
+    class Extra(JConfig):
+        unknown_field: int = 1
+    assert convert._config_from_reference(Extra()) == L3DConfig()
+    with pytest.raises(ValueError, match="unknown_field"):
+        convert._config_from_reference(Extra(unknown_field=2))
+
+
 def test_cuda_device_without_cuda_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="cuda"):

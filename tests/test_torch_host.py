@@ -8,11 +8,12 @@ of line3d_tpu gets the same inputs:
 
 (a) similarities, neighbours, conditioning: neighbours equal, similarities
     and transforms within rtol 1e-12 (float64);
-(b) collinearity: the drop counters before the exact fallback equal those of
-    the reference's Pallas formulation (`collinearity_keep_pallas`,
-    interpret mode), the TPU kernel K4 ports, and are a superset of its XLA
-    formulation's; the maps after the fallback hold the same pairs except the
-    pinned borderline pairs, weights within atol 1e-4;
+(b) collinearity: the first pass's drop counters equal those of the
+    reference's Pallas formulation (`collinearity_keep_pallas`, interpret
+    mode), the TPU kernel K4 ports, and are a superset of its XLA
+    formulation's; the port's maps, those views run again at exact
+    capacity, hold the pairs of the reference's maps after its dense
+    fallback except the pinned borderline pairs, weights within atol 1e-4;
 (c) `build_affinity_graph` (native collinear path): bit for bit;
 (d) `fh_cluster` and `fh_cluster_parallel`: labels equal after relabelling;
 (e) `process_clusters(refine=False)`: TXT `compare_txt`-ok, worst ratio 0;
@@ -90,9 +91,9 @@ SCENES = dict(
     facade8=dict(num_views=8, width=960, height=720, focal=900.0))
 
 # the differences the docstring explains, per scene: collinear pairs
-# (view, i, j) after the fallback only in the port / only in the
+# (view, i, j) of the finished maps only in the port / only in the
 # reference; best-match picks (view, seg) neither near-tie nor traced; the
-# drop counters before the fallback (port = reference's Pallas form); the
+# first pass's drop counters (port = reference's Pallas form); the
 # two models by member sets (a = the port, b = the reference)
 PINS = dict(
     facade6=dict(
@@ -140,15 +141,6 @@ def port_run(name, tmp):
                     (tp.affinity, "build_affinity_graph"),
                     (tp.fh, "fh_cluster"),
                     (tp.fit_lines, "process_clusters")], seen)
-    # the fallback patches the maps in place: keep the counters before it
-    dropped = []
-    orig_collin = tp.collinearity_maps_fast
-
-    def collin_spy(*a, **k):
-        out = orig_collin(*a, **k)
-        dropped.append(np.array(out.dropped_per_view))
-        return out
-    tp.collinearity_maps_fast = collin_spy
     try:
         l3d = Line3D(device="cpu")
         for v in range(V):
@@ -158,13 +150,13 @@ def port_run(name, tmp):
                 width=int(cams.width[v]), height=int(cams.height[v]))
         result = l3d.compute_3d_model()
     finally:
-        tp.collinearity_maps_fast = orig_collin
         for mod, nm, orig in origs:
             setattr(mod, nm, orig)
     txt = os.path.join(tmp, f"{name}_port.txt")
     l3d.save_3d_lines_as_txt(result, txt)
     one = {k: v[0] for k, v in seen.items() if len(v) == 1}
-    return dict(name=name, l3d=l3d, txt=txt, seen=one, dropped=dropped[0],
+    return dict(name=name, l3d=l3d, txt=txt, seen=one,
+                dropped=np.array(l3d.scene.collin.dropped_per_view),
                 segments=scene.segments, mask=scene.seg_mask,
                 wp_lists=scene.wp_lists)
 
@@ -326,8 +318,12 @@ def check_collinearity(port, ref):
     np.testing.assert_array_equal(port["dropped"], d_pallas)
     assert port["dropped"].tolist() == pins["dropped"]
     assert (port["dropped"] >= d_xla).all()
-    got = port["seen"]["build_affinity_graph"][0][2]     # after fallback
-    assert got.dropped_total == 0
+    # the maps the graph read: the first pass's counters, and every view
+    # with one run again at exact capacity
+    got = port["seen"]["build_affinity_graph"][0][2]
+    assert got is port["l3d"].scene.collin
+    np.testing.assert_array_equal(got.views_exact,
+                                  np.flatnonzero(port["dropped"]))
     pg = _pairs(got)
     for want in (post_xla, post_pallas):
         pw = _pairs(want)

@@ -144,15 +144,16 @@ def test_pair_valid_equals_pair_dense_valid(dev, case):
     assert int(stats[1]) * 32 >= int(stats[0])
 
 
-def _check_collin_pairs(segments, masks, quota=8, sig2=4.0):
+def _check_collin_pairs(segments, masks, quota=8, sig2=4.0, capacity=None):
     """K4 against its plain twin on the card: identical keys and counts,
     bit-equal weights; returns the kernel's result."""
     n0 = k4.LAUNCHES
     got = col.collinearity_compact_all(segments, masks, np.float32(sig2),
-                                       quota=quota)
+                                       quota=quota, capacity=capacity)
     assert k4.LAUNCHES == n0 + 1
     want = col.collinearity_compact_all_plain(segments, masks,
-                                              np.float32(sig2), quota=quota)
+                                              np.float32(sig2), quota=quota,
+                                              capacity=capacity)
     torch.cuda.synchronize()
     for g, w in zip(got, want):
         assert g.shape == w.shape and g.dtype == w.dtype
@@ -201,8 +202,10 @@ def test_collin_keep_kernel_matches_plain(dev):
 
 @pytest.mark.parametrize("quota", [8, 1])
 def test_collin_pairs_facade(dev, quota):
-    """All 25 facade views; with quota 1 views drop pairs, and the exact
-    fallback repairs them from the card's counts as from the twin's."""
+    """All 25 facade views; with quota 1 views drop pairs, and
+    `collinearity_maps_fast` runs them again through K4 with no quota at a
+    capacity of their largest count: the kernel's lists equal the twin's
+    there, and the maps equal those of the default quota bit for bit."""
     from line3d_tpu_torch.utils.demo import make_facade_scene
     scene, _ = make_facade_scene(num_views=25, device=dev)
     pairs, w, count = _check_collin_pairs(scene.segments_t,
@@ -211,9 +214,19 @@ def test_collin_pairs_facade(dev, quota):
                                      count.cpu().numpy(), scene.max_segments)
     assert (maps.dropped_total > 0) == (quota == 1)
     if quota == 1:
-        fixed, n = col.apply_collinearity_exact_fallback(
-            maps, scene.segments_t, scene.seg_mask_t, 2.0)
-        assert n > 0 and fixed.dropped_total == 0
+        views = np.flatnonzero(maps.dropped_per_view)
+        idx = torch.as_tensor(views, device=dev)
+        blk = k4.block_quota(scene.max_segments, quota)[0]
+        _check_collin_pairs(scene.segments_t[idx], scene.seg_mask_t[idx],
+                            quota=blk, capacity=int(count[idx].max()))
+        exact = col.collinearity_maps_fast(scene.segments_t,
+                                           scene.seg_mask_t, 2.0, quota=1)
+        main = col.collinearity_maps_fast(scene.segments_t,
+                                          scene.seg_mask_t, 2.0)
+        np.testing.assert_array_equal(exact.views_exact, views)
+        for f in ("flat_view", "flat_i", "flat_j", "flat_w"):
+            np.testing.assert_array_equal(getattr(exact, f),
+                                          getattr(main, f))
 
 
 def test_collin_pairs_cap_bites(dev):

@@ -186,29 +186,49 @@ def test_every_readback_counted_under_its_site(on):
                       for site in want}
 
 
-def test_the_exact_collinearity_fallback_reads_back_dense_maps(
-        monkeypatch):
-    # one exported pair a view: the views with more are re-derived from
-    # their dense [S, S] maps, each read back whole
+def test_the_exact_collinearity_rerun_reads_back_its_lists(monkeypatch):
+    # one exported pair a view in the first pass: the views with more run
+    # again at exact capacity, in the collinearity stage, and their lists
+    # (pairs, weights, counts) are read back, as long as the largest of
+    # their candidate counts
     monkeypatch.setattr(collinearity, "_pairs_cap", lambda S, K, p=4: 1)
     w0 = dict(trace.WAIT_NS)
     (l3d,), got = _recorded()
     waited = {k: v - w0.get(k, 0) for k, v in trace.WAIT_NS.items()}
+    views = l3d.scene.collin.views_exact
     n = l3d.stats["views_recollin_exact"]
-    S = l3d.scene.max_segments
-    assert n > 0
-    assert got["counters"]["syncs.collin.exact"] == n
-    assert got["counters"]["dtoh_bytes.collin.exact"] == n * S * S * 4
+    assert n == len(views) > 0
+    count = collinearity.collinearity_compact_all(
+        l3d.scene.segments_t, l3d.scene.seg_mask_t, np.float32(4.0))[2]
+    C = int(count[views].max())
+    assert got["counters"]["syncs.collin.exact"] == 3
+    assert got["counters"]["dtoh_bytes.collin.exact"] == n * C * 8 + n * 8
     by_name = {s["name"]: s for s in got["spans"]}
     exact = [s for s in got["spans"] if s["name"] == "wait.collin.exact"]
-    assert len(exact) == n
-    assert {s["parent"] for s in exact} == {by_name["collin.fallback"]["id"]}
-    assert by_name["collin.fallback"]["parent"] == by_name["matching"]["id"]
-    # the match step's wait leaves the dense maps' out, though they are
-    # read back in the matching stage
+    assert len(exact) == 3
+    assert {s["parent"] for s in exact} == {by_name["collinearity"]["id"]}
+    assert "collin.fallback" not in by_name
+    # the match step's wait leaves the re-run's out
     assert waited["collin.exact"] > 0
     assert l3d.stats["t_match_wait"] == sum(
         v for k, v in waited.items() if k.startswith("match.")) / 1e9
+
+
+def test_a_model_builds_no_per_view_dict():
+    """The pipeline reads the collinear pairs' flat arrays only: after a
+    model no view's {i: {j: w}} dict exists; indexing a view builds it from
+    the flat arrays, once."""
+    l3d = _model()
+    coll = l3d.scene.collin
+    assert len(coll.flat_i) > 0
+    assert coll._views == {}
+    v = int(coll.flat_view[0])
+    d = coll[v]
+    assert coll._views == {v: d} and coll[v] is d
+    sel = coll.flat_view == v
+    assert {(i, j): w for i, js in d.items() for j, w in js.items()} == \
+        dict(zip(zip(coll.flat_i[sel].tolist(), coll.flat_j[sel].tolist()),
+                 coll.flat_w[sel].tolist()))
 
 
 def test_the_host_selection_reads_back_the_tables():

@@ -117,7 +117,7 @@ def to_reference(obj):
 
     def arr(x):
         return np.array(x) if isinstance(x, np.ndarray) else x
-    if isinstance(obj, list) and hasattr(obj, "flat_view"):
+    if hasattr(obj, "flat_view"):
         out = jc.CollinMaps({i: dict(js) for i, js in d.items()}
                             for d in obj)
         for f in ("flat_view", "flat_i", "flat_j", "flat_w",
