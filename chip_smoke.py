@@ -21,11 +21,15 @@ exits non-zero):
                at M=256 and
                M=1024 (with the dense walk's pair tests and the spatial
                gate's survivors); then the affinity stage's enumeration
-               (csrc/affinity_enum.cu) on the inputs of one exact facade
-               model, its candidate stream held to the native walk's
-               element for element; errors, CUDA-event times (the
-               enumeration's call and its walk by host clock) and each
-               kernel's bound.
+               (csrc/affinity_enum.cu) on the inputs of one exact model
+               of the benchmark's P25 facade capture (19.6 M
+               candidates), its candidate stream held to the native walk's
+               element for element, and its weight filter
+               (csrc/affinity_filter.cu) on that stream: the kept
+               candidates its numpy twin's and a superset of the native
+               sweep's passes, the kept share logged; errors, CUDA-event
+               times (the enumeration's call, its walk and the filter's
+               whole call by host clock) and each kernel's bound.
   4. validate  K5 (dense depth planes) through `pair_dense`, the port's
                counterpart of scripts/tpu_validate.py's phase 2: the house
                pair at S=384 and facade view 0 x 10 neighbors, held against
@@ -165,13 +169,14 @@ exits non-zero):
  19. cudatests the `cuda`-marked tests of tests/test_torch_kernels_cuda.py
                on the card, in a process of their own (`python -m pytest
                ... -m cuda --noconftest`): pytest must exit 0 and at least
-               46 must pass (47 on two cards or more).
+               48 must pass (49 on two cards or more).
 
 Each path's kernel launch counts are set to 0 just before it is driven and
 read just after; every counted model must run the affinity enumeration
-once on its card (four launches), and where a path's kernels are held
-against their twins at its shapes, that run's candidate stream is held to
-the native walk's on the same inputs.  The line before last is the card as
+and its filter once on its card (four launches and two), and where a
+path's kernels are held against their twins at its shapes, that run's
+candidate stream is held to the native walk's on the same inputs and its
+kept candidates to the filter's twin and the native sweep.  The line before last is the card as
 `nvidia-smi` reports it, the last line the result object.  The script
 imports no JAX and nothing of `line3d_tpu`.
 """
@@ -256,6 +261,15 @@ PEAK_LINK = 63e9
 # not empty (`affinity_cuda.LAUNCHES`: prep, pass 1, pass 2 counting and
 # writing)
 AFFINITY_ENUM_LAUNCHES = 4
+# ... and of its weight filter, counted in the same `LAUNCHES`
+# (`l3d_affinity_filter`, `l3d_affinity_compact`)
+AFFINITY_FILTER_LAUNCHES = 2
+# the filter's float64 operations a candidate (csrc/affinity_filter.cu: the
+# four endpoint distances 16 each, each side's uncertainties and Gaussians
+# 20, the angle 11, the weight and its cut 5; a sqrt, divide, exp or acos
+# counted once, so a floor) and the card's float64 rate outside the
+# tensor cores (NVIDIA H100 SXM data sheet)
+FILTER_F64_OPS, PEAK_F64 = 120, 34e12
 # K4's weights against its twin: the same operations in the same order,
 # so equal bits are expected; any weight that differs is counted and must
 # stay within this
@@ -588,33 +602,54 @@ def phase_kernels():
                                bound_by=b_by, old_prep_ms=old_prep_ms,
                                pair_tests_dense=dense, gate_pass=n_pass)
 
-    out["affinity_enum"] = _kernel_affinity_enum()
+    out["affinity_enum"], out["affinity_filter"] = _kernel_affinity()
     return out
 
 
-def _kernel_affinity_enum(reps: int = 3):
+# the configuration file of the benchmark's P25 facade, whose capture
+# phase `kernels` holds the affinity enumeration and filter on (19.6 M
+# candidates a model)
+P25_FACADE = "benchmark/configs/facade_p25.json"
+
+
+def _kernel_affinity(reps: int = 3):
     """The affinity enumeration (csrc/affinity_enum.cu) on the inputs of
-    one counted exact model of the 25-view facade on the card: its stream
-    held to the native walk's (_hold_enum), the card call (the inputs'
-    upload, four launches, the two readbacks) timed by host clock over
-    `reps` calls, and its bound: the larger of its least device bytes (the
-    inputs read once, the stream written once) over the memory rate and
-    its bytes over the host link (the inputs up, the stream down) over the
-    link's rate.  No floating-point operation is counted: a weight is
-    copied, and every other step is an integer lookup."""
+    one counted exact model of the benchmark's P25 facade capture
+    (P25_FACADE: 25 views of 3072 x 2048, 3,000 segments a view) on the
+    card: its stream
+    held to the native walk's and its filter's kept candidates to the
+    twin and the native sweep (_hold_enum), the card call (the inputs'
+    upload, four launches, the two readbacks, the stream's whole) timed
+    by host clock over `reps` calls, and its bound: the larger of its
+    least device bytes (the inputs read once, the stream written once)
+    over the memory rate and its bytes over the host link (the inputs up,
+    the stream down) over the link's rate.  No floating-point operation is
+    counted: a weight is copied, and every other step is an integer
+    lookup.  Then the filter on that stream (_kernel_affinity_filter).
+    Returns the two records."""
+    from benchmark.scenes import make_capture
     from line3d_tpu_torch import Line3D, L3DConfig
     from line3d_tpu_torch.cluster import affinity, affinity_cuda as ka
-    from line3d_tpu_torch.utils.demo import make_facade_scene
-    cfg = L3DConfig()
-    scene, cams = make_facade_scene(num_views=25, config=cfg)
-    _counted(lambda: feed(Line3D(config=cfg), scene, cams)
-             .compute_3d_model(), "kernels")
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, P25_FACADE)) as f:
+        spec = json.load(f)
+    cap = make_capture(spec["scene"])
+
+    def model():
+        l3d = Line3D(config=L3DConfig(**spec["l3d"]), device="cuda")
+        for v in range(cap.num_views):
+            l3d.add_view_segments(v, cap.segments[v], cap.K[v], cap.R[v],
+                                  cap.t[v], worldpoint_ids=cap.wp_lists[v],
+                                  width=int(cap.width[v]),
+                                  height=int(cap.height[v]))
+        l3d.compute_3d_model()
+    _counted(model, "kernels")
     call = _ENUM_CALLS.pop("kernels")
     held = _hold_enum(call, "kernels")
-    a = call[0]
+    a = call["enum"][0]
     t0 = time.perf_counter()
     for _ in range(reps):
-        affinity.enumerate_candidates(*a)  # ends in a readback: synchronous
+        ka.read_stream(affinity.enumerate_candidates(*a))
     ms = (time.perf_counter() - t0) / reps * 1e3
     n = held["candidates"]
     inputs = sum(np.asarray(x).nbytes for x in a[:7])
@@ -629,9 +664,53 @@ def _kernel_affinity_enum(reps: int = 3):
         f"{held['native_s'] * 1e3:.3f} ms; bound {b_ms:.4f} ms by {b_by} "
         f"({inputs} input bytes, {stream} stream bytes; device "
         f"{t_mem:.4f} ms, host link {t_link:.4f} ms)")
-    return dict(max_abs_err=0.0, ms=ms, plain_ms=held["native_s"] * 1e3,
+    enum = dict(max_abs_err=0.0, ms=ms, plain_ms=held["native_s"] * 1e3,
                 bound_ms=b_ms, bound_by=b_by, bound_device_ms=t_mem,
                 candidates=n, input_bytes=inputs, stream_bytes=stream)
+    return enum, _kernel_affinity_filter(call, held)
+
+
+def _kernel_affinity_filter(call, held, reps: int = 20):
+    """The weight filter (csrc/affinity_filter.cu) on the stream the
+    counted facade model left on the card: its launch timed by CUDA events
+    over `reps`, its whole call (the rows' upload, the filter, the prefix
+    sum, the compaction, the two readbacks) and its numpy twin by host
+    clock, and its bound: the larger of its least device bytes (the stream
+    and the rows read once, one flag a candidate written) over the memory
+    rate and FILTER_F64_OPS a candidate over the float64 rate."""
+    from line3d_tpu_torch.cluster import affinity_cuda as ka
+    stream = call["enum"][2]
+    _, best, cams, cfg = call["kept"][0]
+    n = stream.n
+    rows = ka.upload_rows(best, cams, stream.buf.device)
+    ms = cuda_ms(lambda: ka.filter_flags(stream, rows, cfg), reps)
+    t0 = time.perf_counter()
+    kept = ka.kept_candidates(stream, best, cams, cfg)
+    call_ms = (time.perf_counter() - t0) * 1e3
+    host = ka.read_stream(stream)
+    t0 = time.perf_counter()
+    ka.filter_plain(*host, best, cams, cfg)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    rows_bytes = sum(t.numel() * t.element_size() for t in rows)
+    nbytes = ka.CANDIDATE_BYTES * n + rows_bytes + n
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = FILTER_F64_OPS * n / PEAK_F64 * 1e3
+    b_ms, b_by = (t_bytes, "bytes") if t_bytes >= t_ops else \
+        (t_ops, "float64 operations")
+    m = len(kept[0])
+    require(m == held["kept"], "kernels: the filter kept "
+            f"{m} candidates on a second call, {held['kept']} in the model")
+    log(f"[kernels] affinity filter on the facade's stream: {n} "
+        f"candidates, {m} kept ({m / n:.4f}); kernel {ms:.4f} ms (CUDA "
+        f"events, mean of {reps}), the whole call {call_ms:.3f} ms (host "
+        f"clock), numpy twin {plain_ms:.1f} ms; bound {b_ms:.4f} ms by "
+        f"{b_by} ({nbytes} bytes, {rows_bytes} of them rows: "
+        f"{t_bytes:.4f} ms; {FILTER_F64_OPS * n} float64 operations: "
+        f"{t_ops:.4f} ms)")
+    return dict(max_abs_err=0.0, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, candidates=n, kept=m,
+                kept_share=m / n, passed=held["passed"], bytes=nbytes,
+                f64_ops=FILTER_F64_OPS * n)
 
 
 def collin_chain(n=512):
@@ -1063,8 +1142,10 @@ def _launch_counts(zero=False):
                 affinity_enum=ka.LAUNCHES)
 
 
-# the last counted run's affinity enumeration, by its tag: (args, kwargs,
-# stream, host seconds of the call), held by _check_path_kernels
+# the last counted run's affinity enumeration and filter, by its tag:
+# {"enum": (args, kwargs, the card's stream, host seconds of the call),
+# "kept": the same of the filter, its kept candidates on the host}, held
+# by _check_path_kernels
 _ENUM_CALLS = {}
 
 
@@ -1073,28 +1154,32 @@ def _counted(run, tag, wide=True):
     before; fails unless each kernel was launched (the scoring kernel at
     M > 256 when `wide`, at any M otherwise), K4 once for the first pass
     and once more if the collinearity re-ran views at exact capacity, and
-    the affinity enumeration once, on the card, with its four launches.
-    Keeps that enumeration's call under `tag` for _check_path_kernels.
-    Returns (run's result, the counts just after)."""
+    the affinity enumeration and its filter once, on the card, with their
+    four launches and two.  Keeps their calls under `tag` for
+    _check_path_kernels.  Returns (run's result, the counts just after)."""
     import torch
     from line3d_tpu_torch.cluster import affinity, affinity_cuda as ka
     from line3d_tpu_torch.match import collinearity
-    enum = affinity.enumerate_candidates
-    calls = []
+    enum, kept_fn = affinity.enumerate_candidates, ka.kept_candidates
+    calls, kcalls = [], []
 
-    def timed(*a, **k):
-        t0 = time.perf_counter()
-        out = enum(*a, **k)
-        calls.append((a, k, out, time.perf_counter() - t0))
-        return out
+    def timer(fn, into):
+        def timed(*a, **k):
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            into.append((a, k, out, time.perf_counter() - t0))
+            return out
+        return timed
     _ENUM_CALLS.clear()
     _launch_counts(zero=True)
-    affinity.enumerate_candidates = timed
+    affinity.enumerate_candidates = timer(enum, calls)
+    ka.kept_candidates = timer(kept_fn, kcalls)
     try:
         with spy(collinearity, "_rerun_exact", []) as reruns:
             out = run()
     finally:
         affinity.enumerate_candidates = enum
+        ka.kept_candidates = kept_fn
     counts = _launch_counts()
     require(counts["pair_valid"] > 0 and counts["collin_pairs"] > 0
             and counts["score_wide" if wide else "score"] > 0,
@@ -1103,23 +1188,29 @@ def _counted(run, tag, wide=True):
             f"{tag}: K4 ran {counts['collin_pairs']} times in one model "
             f"with {len(reruns)} exact re-runs")
     require(len(calls) == 1 and torch.device(calls[0][0][-1]).type == "cuda"
-            and counts["affinity_enum"] == AFFINITY_ENUM_LAUNCHES,
-            f"{tag}: the affinity enumeration ran {len(calls)} times, "
-            f"{counts['affinity_enum']} launches, not once on the card")
-    _ENUM_CALLS[tag] = calls[0]
-    n = len(calls[0][2][0])
+            and len(kcalls) == 1 and counts["affinity_enum"] ==
+            AFFINITY_ENUM_LAUNCHES + AFFINITY_FILTER_LAUNCHES,
+            f"{tag}: the affinity enumeration ran {len(calls)} times and "
+            f"its filter {len(kcalls)}, {counts['affinity_enum']} launches, "
+            "not once each on the card")
+    _ENUM_CALLS[tag] = dict(enum=calls[0], kept=kcalls[0])
+    n, m = calls[0][2].n, len(kcalls[0][2][0])
     log(f"[{tag}] launches in the run: {counts}; the affinity enumeration "
-        f"on the card: {n} candidates ({ka.CANDIDATE_BYTES * n} B read "
-        f"back) in {calls[0][3]:.4f} s (host clock)")
+        f"on the card: {n} candidates in {calls[0][3]:.4f} s, the filter "
+        f"kept {m} ({ka.CANDIDATE_BYTES * m} B read back) in "
+        f"{kcalls[0][3]:.4f} s (host clock)")
     return out, counts
 
 
 def _hold_enum(call, tag):
-    """A recorded card enumeration (args, kwargs, stream, seconds) against
-    the native walk (`device="cpu"`) on the same inputs, bit for bit, the
-    walk timed by host clock.  Returns its figures."""
+    """A recorded card enumeration (_ENUM_CALLS' entry) against the native
+    walk (`device="cpu"`) on the same inputs, bit for bit, the walk timed
+    by host clock; then its filter's kept candidates against the twin's
+    on the walk's stream, bit for bit in order, and every candidate the
+    native sweep passes among them.  Returns their figures."""
     from line3d_tpu_torch.cluster import affinity, affinity_cuda as ka
-    a, _, got, t_card = call
+    a, _, stream, t_card = call["enum"]
+    got = ka.read_stream(stream)
     t0 = time.perf_counter()
     want = affinity.enumerate_candidates(*a[:-1], device="cpu")
     t_native = time.perf_counter() - t0
@@ -1135,9 +1226,33 @@ def _hold_enum(call, tag):
         f"card call {t_card:.4f} s, walk {t_native:.4f} s (host clock)")
     require(not differ, f"{tag}: the card's candidate stream differs from "
             f"the native walk's in {differ}")
-    return dict(candidates=n, readback_bytes=ka.CANDIDATE_BYTES * n,
-                pairs=int(P), sources=int(B),
-                card_s=t_card, native_s=t_native)
+    (_, best, cams, cfg), _, kept, t_filter = call["kept"]
+    keep = ka.filter_plain(*want, best, cams, cfg)
+    t0 = time.perf_counter()
+    passed = affinity._candidate_weights_range(
+        best, *want, cams, cfg, 0, n,
+        n_stream=max(n, affinity.NATIVE_SIM_THRESHOLD + 1)) >= 0.0
+    t_sweep = time.perf_counter() - t0
+    differ = [name for g, w, name in zip(kept, (x[keep] for x in want),
+                                         ("src", "tgt", "kind", "cw"))
+              if g.shape != w.shape or
+              not np.array_equal(g.view(np.uint8), w.view(np.uint8))]
+    missed = int((passed & ~keep).sum())
+    m, n_pass = len(kept[0]), int(passed.sum())
+    log(f"[{tag}] affinity filter: kept {m} of {n} candidates (share "
+        f"{m / max(n, 1):.4f}; {ka.CANDIDATE_BYTES * m} B read back), the "
+        f"native sweep passes {n_pass} (slack {m - n_pass}); the kept "
+        f"candidates against the twin's differ in {differ or 'nothing'}, "
+        f"{missed} passing candidates dropped; filter call {t_filter:.4f} s,"
+        f" the native sweep over the whole stream {t_sweep:.4f} s (host "
+        "clock)")
+    require(not differ and missed == 0, f"{tag}: the card's filter kept "
+            f"other candidates than its twin ({differ}) or dropped {missed} "
+            "that the native sweep passes")
+    return dict(candidates=n, readback_bytes=ka.CANDIDATE_BYTES * m,
+                kept=m, passed=n_pass, kept_share=m / max(n, 1),
+                pairs=int(P), sources=int(B), card_s=t_card,
+                native_s=t_native, filter_s=t_filter, sweep_s=t_sweep)
 
 
 def _profile(run, tag):
@@ -2477,11 +2592,17 @@ def multiproc_rank(spec: str) -> int:
     st = l3d.stats
     stage_bytes = {k: st["gathered_by_stage"][k]
                    for k in ("collinearity", "matching", "affinity")}
+    # the affinity stage gathers the other ranks' float64 weights of the
+    # kept candidates; the whole stream's sweep would gather these bytes
+    n_all = st["affinity_candidates"]
+    a_lo, a_hi = multihost.local_range(n_all)
     out.update(t_match=st["t_match"], t_collin=st["t_collin"],
                gathered_bytes=st["gathered_bytes"], stage_bytes=stage_bytes,
                sweep_candidates=len(sweeps[-1][0][1]) if sweeps else 0,
                views_local=st["views_local"], lines=st["num_lines"],
-               affinity_candidates=st["affinity_candidates"],
+               affinity_candidates=n_all,
+               affinity_kept=st["affinity_kept"],
+               affinity_whole_stream_bytes=8 * (n_all - (a_hi - a_lo)),
                t_affinity_enum=st["t_affinity_enum"])
     log(f"[{tag}] exact: cold {out['cold']:.3f} s, warm {out['warm']:.3f} s"
         f" (t_collin {st['t_collin']:.3f}, t_match {st['t_match']:.3f}, "
@@ -2491,7 +2612,10 @@ def multiproc_rank(spec: str) -> int:
         f"process {out['peak']} B; "
         f"received {st['gathered_bytes']} bytes from the other ranks, by "
         f"stage {stage_bytes} (the weight sweep split over "
-        f"{out['sweep_candidates']} candidates); launches {out['counts']}")
+        f"{out['sweep_candidates']} kept candidates of {n_all}: the "
+        f"affinity stage gathered {stage_bytes['affinity']} B where the "
+        f"whole stream's sweep would gather "
+        f"{out['affinity_whole_stream_bytes']} B); launches {out['counts']}")
     require(st["num_processes"] == nproc and st["views_local"] == hi - lo,
             f"{tag}: stats do not show the rank's share")
     require(out["counts"]["pair_valid"] == hi - lo and
@@ -2689,6 +2813,13 @@ def phase_multiproc(card, fa, fd, fb):
                     f" {r['t_match']:.3f} {r['gathered_bytes']} "
                     f"{r['stage_bytes']}" for r in ranks)
         + f"; phase facade's warm seconds {fa['warm']} on {card}")
+    log("[multiproc] the affinity stage's gathered bytes per rank, the "
+        "kept candidates' weights against the whole stream's (the kept "
+        "and all candidates): "
+        + "; ".join(f"{r['stage_bytes']['affinity']} / "
+                    f"{r['affinity_whole_stream_bytes']} B "
+                    f"({r['affinity_kept']} / {r['affinity_candidates']})"
+                    for r in ranks))
     log(f"[multiproc] cluster stage split over {n_ranks} ranks: (c) "
         f"facaded's and (d) facadeba's TXT byte for byte on every rank, "
         f"(d)'s poses bit for bit; per rank ((c) warm s, t_diffusion, t_fit;"
@@ -2859,11 +2990,11 @@ def phase_scale(card):
 
 # phase cudatests: the `cuda`-marked tests run on the card, in a process of
 # their own (tests/conftest.py imports JAX, which that machine lacks; hence
-# --noconftest).  On one card 46 pass and one skips,
+# --noconftest).  On one card 48 pass and one skips,
 # test_pair_valid_kernel_on_second_card, which needs two cards.
 CUDA_TESTS = ["tests/test_torch_kernels_cuda.py", "-q", "-m", "cuda",
               "--noconftest", "-p", "no:cacheprovider"]
-CUDA_TESTS_PASSED = 47            # on one card; one more on two or more
+CUDA_TESTS_PASSED = 48            # on one card; one more on two or more
 CUDA_TESTS_TIMEOUT_S = 600
 
 
@@ -3289,6 +3420,13 @@ def main() -> int:
              launches=cnt["affinity_enum"], library_ms=None,
              launches_per_facade_run=cnt["affinity_enum"],
              **also("affinity_enum"), **k["affinity_enum"]),
+        dict(name="affinity_filter", route="cuda",
+             source="line3d_tpu_torch/csrc/affinity_filter.cu",
+             replaces=None,
+             plain_twin="line3d_tpu_torch/cluster/affinity_cuda.py:"
+                        "filter_plain",
+             launches="counted with affinity_enum", library_ms=None,
+             **k["affinity_filter"]),
     ]
     log(json.dumps({"kernels": kernels}))
     print(smi, flush=True)

@@ -27,11 +27,14 @@ evaluated vectorized over all candidate pairs after enumeration.
 Host numpy + native C++ copy of `line3d_tpu/cluster/affinity.py`.  With
 collinearity the exact-order enumeration runs on the card when the Line3D's
 device is CUDA (`affinity_cuda`, `csrc/affinity_enum.cu`), in the native
-walk otherwise; both give one stream.  Under N processes
-(`parallel.multihost`) the finalize's weight sweep is split by candidate
-range across the ranks and gathered as float64 bits
-(`_finalize_candidates`); the enumeration (each rank on its own card) and
-the emission run replicated, so every rank builds the single-process graph.
+walk otherwise; both give one stream.  On the card the stream stays there,
+and a filter (`csrc/affinity_filter.cu`) sends the host only the candidates
+it cannot prove failing; the host's sweep weighs those, so the graph is the
+whole stream's.  Under N processes (`parallel.multihost`) the finalize's
+weight sweep is split by candidate range across the ranks and gathered as
+float64 bits (`_finalize_candidates`); the enumeration and the filter (each
+rank on its own card) and the emission run replicated, so every rank
+builds the single-process graph.
 """
 from __future__ import annotations
 
@@ -47,6 +50,7 @@ from ..match.engine import BestMatches
 from ..native.load import get_lib
 from ..parallel import multihost
 from .. import trace
+from . import affinity_cuda
 
 
 @dataclasses.dataclass
@@ -58,6 +62,8 @@ class AffinityGraph:
     node_seg: np.ndarray      # [B] int32: local id -> segment
     num_nodes: int
     num_candidates: int = 0   # length of the candidate stream it was built from
+    num_kept: int = 0         # the candidates the host weighed: the card's
+                              # kept ones on CUDA, the whole stream otherwise
 
 
 # batch size above which similarity_coll3d and the candidate finalize run
@@ -225,7 +231,7 @@ def _build_affinity_graph_fast(best, adj, row_of, key_of, cams, config,
         edges_i=ei, edges_j=ej, edges_w=ew,
         node_view=best.view[node_rows].astype(np.int32),
         node_seg=best.seg[node_rows].astype(np.int32),
-        num_nodes=len(node_rows), num_candidates=n_cand)
+        num_nodes=len(node_rows), num_candidates=n_cand, num_kept=n_cand)
 
 
 def _collin_csr(collin, num_views: int, S: int):
@@ -248,7 +254,7 @@ def _collin_csr(collin, num_views: int, S: int):
 
 
 def _finalize_candidates(best, src_rows, tgt_rows, kinds, cws,
-                         cams, config, verbose):
+                         cams, config, verbose, n_stream=None):
     """Shared tail of every enumerator: similarity, weights, per-kind
     thresholds, node-id assignment in emission order (line3D.cc:1019-1050),
     symmetric edge list.  The weight sweep, the parallel part, covers this
@@ -257,29 +263,41 @@ def _finalize_candidates(best, src_rows, tgt_rows, kinds, cws,
     sequential emission then runs over the whole stream on every rank, so
     every rank builds the single-process graph (line3d_tpu's
     _finalize_candidates_sharded, affinity.py:489-524 there).  The
-    enumeration is replicated, so only the weight slices cross."""
+    enumeration is replicated, so only the weight slices cross.
+    `n_stream`: the length of the stream these candidates were kept from
+    (by default theirs), which chooses the native or the numpy sweep and
+    emission, as it would for the whole stream, and is the graph's
+    `num_candidates`."""
     n = len(src_rows)
+    n_stream = n if n_stream is None else n_stream
     if not n:
         return AffinityGraph(np.zeros(0, np.int32), np.zeros(0, np.int32),
                              np.zeros(0, np.float32),
-                             np.zeros(0, np.int32), np.zeros(0, np.int32), 0)
+                             np.zeros(0, np.int32), np.zeros(0, np.int32), 0,
+                             num_candidates=n_stream)
     lo, hi = multihost.local_range(n)
     w = np.concatenate(multihost.allgather_array(_candidate_weights_range(
-        best, src_rows, tgt_rows, kinds, cws, cams, config, lo, hi)))
+        best, src_rows, tgt_rows, kinds, cws, cams, config, lo, hi,
+        n_stream)))
     if len(w) != n:
         raise RuntimeError(f"gathered {len(w)} weights for {n} candidates")
-    return _emit_graph(best, src_rows, tgt_rows, w, verbose)
+    return _emit_graph(best, src_rows, tgt_rows, w, verbose, n_stream)
 
 
 def _candidate_weights_range(best, src_rows, tgt_rows, kinds, cws,
-                             cams, config, lo: int, hi: int) -> np.ndarray:
+                             cams, config, lo: int, hi: int,
+                             n_stream=None) -> np.ndarray:
     """Thresholded edge weights of the candidate slice [lo, hi): w when it
     passes its kind's threshold, -1.0 sentinel otherwise.  The native
-    OpenMP sweep (affinity_weights_range) or numpy, chosen on the TOTAL
-    stream length, not the slice's, so a rank takes the native sweep
-    exactly when one process would: otherwise the numpy and libm roundings
-    would let the process count decide marginal threshold passes."""
-    if len(src_rows) > NATIVE_SIM_THRESHOLD:
+    OpenMP sweep (affinity_weights_range) or numpy, chosen on the WHOLE
+    stream's length (`n_stream`, by default the candidates'), not the
+    slice's or the kept candidates', so a rank, or the host after the
+    card's filter, takes the native sweep exactly when one process would
+    over the whole stream: otherwise the numpy and libm roundings would
+    let the process count or the filter decide marginal threshold
+    passes."""
+    n_stream = len(src_rows) if n_stream is None else n_stream
+    if n_stream > NATIVE_SIM_THRESHOLD:
         w = np.empty(hi - lo, np.float64)
         get_lib().affinity_weights_range(
             np.ascontiguousarray(src_rows, np.int64),
@@ -310,13 +328,15 @@ def _candidate_weights_range(best, src_rows, tgt_rows, kinds, cws,
     return np.where(w > thr, w, -1.0)
 
 
-def _emit_graph(best, src_rows, tgt_rows, w, verbose):
+def _emit_graph(best, src_rows, tgt_rows, w, verbose, n_stream=None):
     """Emission-order graph assembly from sentinel weights (-1 = dropped):
     node ids at first touch + interleaved symmetric edges
     (line3D.cc:1019-1050).  The native sequential pass (affinity_emit) for
-    streams above NATIVE_SIM_THRESHOLD, numpy below."""
+    streams above NATIVE_SIM_THRESHOLD, numpy below, judged by the whole
+    stream's length `n_stream` (by default the candidates')."""
     n = len(src_rows)
-    if n > NATIVE_SIM_THRESHOLD:
+    n_stream = n if n_stream is None else n_stream
+    if n_stream > NATIVE_SIM_THRESHOLD:
         B = best.view.size
         edges_i = np.empty(2 * n, np.int32)
         edges_j = np.empty(2 * n, np.int32)
@@ -368,7 +388,7 @@ def _emit_graph(best, src_rows, tgt_rows, w, verbose):
         edges_i=ei, edges_j=ej, edges_w=ew,
         node_view=best.view[node_rows].astype(np.int32),
         node_seg=best.seg[node_rows].astype(np.int32),
-        num_nodes=len(node_rows), num_candidates=n)
+        num_nodes=len(node_rows), num_candidates=n_stream, num_kept=n)
 
 
 def _build_affinity_graph_native(best, matches, key_of, collin, cams,
@@ -382,7 +402,8 @@ def _build_affinity_graph_native(best, matches, key_of, collin, cams,
     stay in their packed a*M + b form end to end.  Its three parts are
     stage spans (`trace.stage`): affinity.pairs (the correspondence pairs,
     the row lookup and the collinearity CSR), affinity.enumerate and
-    affinity.weights (`_finalize_candidates`)."""
+    affinity.weights (on the card the filter, `affinity_cuda.
+    kept_candidates`, then `_finalize_candidates`)."""
     S = max_segments
     V = cams.num_views
     with trace.stage("affinity.pairs"):
@@ -398,7 +419,12 @@ def _build_affinity_graph_native(best, matches, key_of, collin, cams,
         cand = enumerate_candidates(key_sorted, order, pk, row_lookup, ptr,
                                     coll_j, coll_w, S, M, device)
     with trace.stage("affinity.weights"):
-        return _finalize_candidates(best, *cand, cams, config, verbose)
+        n_stream = None
+        if isinstance(cand, affinity_cuda.CardStream):
+            n_stream = cand.n
+            cand = affinity_cuda.kept_candidates(cand, best, cams, config)
+        return _finalize_candidates(best, *cand, cams, config, verbose,
+                                    n_stream)
 
 
 def enumerate_candidates(key_sorted, order, pk, row_lookup, ptr, coll_j,
@@ -408,11 +434,12 @@ def enumerate_candidates(key_sorted, order, pk, row_lookup, ptr, coll_j,
     `order`), the sorted symmetric packed correspondence pairs `pk`, the
     key -> row lookup (-1 exactly for keys not in `key_sorted`) and the
     collinearity CSR (partners ascending in each row).  On a CUDA
-    `device` the card decides it (`affinity_cuda`); otherwise the native
-    walk `affinity_enumerate_packed`, its plain twin."""
+    `device` the card decides it and it stays there (an
+    `affinity_cuda.CardStream`; `affinity_cuda.read_stream` gives its
+    arrays); otherwise the native walk `affinity_enumerate_packed`, its
+    plain twin, gives the four host arrays."""
     coll_w = np.ascontiguousarray(coll_w, np.float64)
     if device is not None and torch.device(device).type == "cuda":
-        from . import affinity_cuda
         return affinity_cuda.enumerate_candidates_cuda(
             key_sorted, order, pk, row_lookup, ptr, coll_j, coll_w, S, M,
             torch.device(device))

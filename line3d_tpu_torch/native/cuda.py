@@ -41,9 +41,10 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _L = ctypes.c_longlong
+_D = ctypes.c_double
 # C signatures: every pointer and the stream as c_void_p (a plain int would
 # be cut to 32 bits), every count as c_int or, where it may pass 2**31,
-# c_longlong
+# c_longlong, a float64 scalar as c_double
 _SIGNATURES = {
     "l3d_pair_valid": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
     "l3d_pair_dense": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
@@ -56,6 +57,8 @@ _SIGNATURES = {
                           [_P] * 5,
     "l3d_affinity_write": [_P, _P, _L, _P, _L] + [_P] * 6 + [_L, _L] +
                           [_P] * 5 + [_L, _P, _P],
+    "l3d_affinity_filter": [_P, _L] + [_P] * 10 + [_D] * 4 + [_P, _P],
+    "l3d_affinity_compact": [_P, _L, _P, _L, _P, _P],
     "l3d_error_string": [_I],
 }
 

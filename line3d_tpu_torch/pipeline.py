@@ -358,7 +358,7 @@ class Line3D:
                     best, matches, scene.collin, cams, cfg,
                     scene.max_segments, verbose=self.verbose,
                     device=self.device)
-            n_candidates = graph.num_candidates
+            n_candidates, n_kept = graph.num_candidates, graph.num_kept
             by_stage["affinity"] = multihost.GATHERED_BYTES - b
             b = multihost.GATHERED_BYTES
             diff_info = {}
@@ -428,8 +428,11 @@ class Line3D:
             diffusion_terms=diff_info.get("terms", 0),
             refine_clusters=fit_info.get("refine_clusters", 0),
             refine_members=fit_info.get("refine_members", 0),
-            # the length of the affinity stage's candidate stream
+            # the length of the affinity stage's candidate stream, and
+            # the candidates of it the host weighed (on CUDA those the
+            # card's filter kept, otherwise all)
             affinity_candidates=n_candidates,
+            affinity_kept=n_kept,
             t_match_wait=t_match_wait,
             # the model's host synchronisations and device-to-host bytes,
             # every readback counted (trace.readback)

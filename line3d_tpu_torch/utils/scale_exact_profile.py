@@ -306,6 +306,7 @@ def profile_views(V: int, device, n_warm: int = 3, out: str | None = None,
         best_s=secs, images_per_s=V / secs, lines=st["num_lines"],
         edges=st["num_edges"], best_rows=st["num_best"],
         affinity_candidates=st["affinity_candidates"],
+        affinity_kept=st["affinity_kept"],
         views_local=st["views_local"],
         m_total={str(m): int(c) for m, c in zip(*m_totals)},
         **{k: st[k] for k in EXACTNESS},

@@ -19,7 +19,8 @@ from line3d_tpu_torch.native import cuda
 _EXPORT = re.compile(r"L3D_EXPORT\s+([\w\s\*]+?)\s*\b(l3d_\w+)\s*\(([^)]*)\)",
                      re.S)
 _CTYPE = {"int": ctypes.c_int, "float": ctypes.c_float,
-          "long long": ctypes.c_longlong, "const char*": ctypes.c_char_p}
+          "double": ctypes.c_double, "long long": ctypes.c_longlong,
+          "const char*": ctypes.c_char_p}
 
 
 def _param_ctype(decl: str):

@@ -29,7 +29,11 @@ mode's count and the profiler's copies, exactly.  The affinity stage's
 exact-order enumeration (csrc/affinity_enum.cu): its candidate stream
 equal to the native walk's element for element, on hand-built and random
 small inputs and on one model of the 25-view facade and clutter scenes,
-whose whole graph equals the CPU call's."""
+whose whole graph equals the CPU call's; its weight filter
+(csrc/affinity_filter.cu) on the same streams: the candidates it keeps
+equal to those its numpy twin keeps, in order, and a superset of those
+the host's native sweep passes."""
+import functools
 import json
 import os
 import subprocess
@@ -53,7 +57,8 @@ from torch_port_helpers import AFFINITY_ORDER_CASES, \
     HOUSE10_DIFFUSION_OUTSIDE, HOUSE10_OUTSIDE, SELECTION_KINDS, \
     affinity_enum_inputs, affinity_random_case, \
     assert_classes_equal_twin, assert_plan_equals_twin, assert_same_stream, \
-    diffusion_plan_twin, pair_dense_ieee, selection_tables, stereo_views
+    best_rows, diffusion_plan_twin, native_weights, pair_dense_ieee, \
+    selection_tables, small_facade_affinity, stereo_views
 
 pytestmark = pytest.mark.cuda
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -724,72 +729,141 @@ def test_the_recorder_counts_every_sync_and_copy(dev, scene):
     assert got["dtoh_bytes_recorder"] == got["dtoh_bytes_profiler"] > 0, got
 
 
+@functools.lru_cache(maxsize=1)
+def _small_facade():
+    return small_facade_affinity()
+
+
+@pytest.fixture
+def small_facade(dev):
+    """(best, cams, config, stream) of a small facade's model on the CPU
+    (torch_port_helpers.small_facade_affinity), made once."""
+    return _small_facade()
+
+
+def _hold_filter(kept, want, best, cams, cfg):
+    """The card filter's kept candidates `kept` of the walk's stream `want`
+    against its numpy twin's, array for array in the stream's order, and a
+    superset of the native sweep's passes.  Returns (candidates, kept,
+    passed)."""
+    from line3d_tpu_torch.cluster import affinity_cuda as ka
+    keep = ka.filter_plain(*want, best, cams, cfg)
+    assert_same_stream(kept, tuple(x[keep] for x in want))
+    passed = native_weights(best, want, cams, cfg) >= 0.0
+    assert keep[passed].all()
+    return len(keep), int(keep.sum()), int(passed.sum())
+
+
+def _enum_and_filter(inputs, dev, best, cams, cfg):
+    """The card's stream of `inputs` against the walk's, then its filter
+    on rows `best` against the twin and the sweep (_hold_filter)."""
+    from line3d_tpu_torch.cluster import affinity, affinity_cuda as ka
+    stream = affinity.enumerate_candidates(*inputs, device=dev)
+    want = affinity.enumerate_candidates(*inputs, device="cpu")
+    assert_same_stream(ka.read_stream(stream), want)
+    return _hold_filter(ka.kept_candidates(stream, best, cams, cfg), want,
+                        best, cams, cfg)
+
+
 @pytest.mark.parametrize("name", sorted(AFFINITY_ORDER_CASES))
-def test_affinity_enum_kernel_on_hand_built_cases(dev, name):
+def test_affinity_enum_kernel_on_hand_built_cases(dev, small_facade, name):
     """The card's candidate stream against the native walk's on
-    tests/torch_port_helpers.AFFINITY_ORDER_CASES."""
-    from line3d_tpu_torch.cluster import affinity
+    tests/torch_port_helpers.AFFINITY_ORDER_CASES, and its filter on rows
+    of a small facade's best matches."""
+    best, cams, cfg, _ = small_facade
     keys, pairs, coll, _, _ = AFFINITY_ORDER_CASES[name]
     inputs = affinity_enum_inputs(keys, pairs, coll, 3, 8)
-    assert_same_stream(affinity.enumerate_candidates(*inputs, device=dev),
-                       affinity.enumerate_candidates(*inputs, device="cpu"))
+    _enum_and_filter(inputs, dev, best_rows(best, len(keys), 0), cams, cfg)
 
 
-def test_affinity_enum_kernel_on_random_graphs(dev):
+def test_affinity_enum_kernel_on_random_graphs(dev, small_facade):
     """The card's candidate stream against the native walk's on 200 random
     small inputs (tests/test_torch_affinity_order.py's), half of them with
-    pairs inside a view, self pairs and repeated partners."""
-    from line3d_tpu_torch.cluster import affinity
+    pairs inside a view, self pairs and repeated partners, and its filter
+    on rows of a small facade's best matches, which both pass and fail."""
+    best, cams, cfg, _ = small_facade
+    seen = np.zeros(3, np.int64)
     for seed in range(200):
         inputs = affinity_random_case(seed, general=seed % 2 == 1)
-        assert_same_stream(
-            affinity.enumerate_candidates(*inputs, device=dev),
-            affinity.enumerate_candidates(*inputs, device="cpu"))
+        seen += _enum_and_filter(inputs, dev,
+                                 best_rows(best, len(inputs[0]), seed),
+                                 cams, cfg)
+    n, kept, passed = seen
+    assert 0 < passed <= kept < n, seen
+
+
+def test_affinity_filter_kernel_on_a_small_facade(dev, small_facade):
+    """The filter on a small facade's own stream (6,414 candidates of all
+    three kinds) uploaded to the card."""
+    from line3d_tpu_torch.cluster import affinity_cuda as ka
+    from line3d_tpu_torch.scene import upload
+    best, cams, cfg, want = small_facade
+    n = len(want[0])
+    buf = np.concatenate([np.asarray(x).view(np.uint8) for x in
+                          (want[0], want[1], want[3], want[2])])
+    stream = ka.CardStream(upload(buf, dev), n)
+    assert_same_stream(ka.read_stream(stream), want)
+    n, kept, passed = _hold_filter(
+        ka.kept_candidates(stream, best, cams, cfg), want, best, cams, cfg)
+    assert 0 < passed <= kept < n
 
 
 @pytest.mark.parametrize("scene", ["facade", "clutter"])
 def test_affinity_enum_kernel_on_25_view_scenes(dev, scene):
     """One model of `scale_exact_profile`'s 25-view scene (the 1920 x 1440
     facade, or the clutter scene at S = 3,072) on the card: its
-    enumeration ran on the card (its four kernel launches, one readback at
-    `affinity.candidates`, 25 bytes a candidate,
-    `stats["affinity_candidates"]` the stream's length), and its stream
-    equals the native walk's on the same inputs; the model's graph equals
-    `build_affinity_graph` on the CPU, field for field."""
+    enumeration and filter ran on the card (four kernel launches and two,
+    `stats["affinity_candidates"]` the stream's length), and its stream,
+    read back here, equals the native walk's on the same inputs; the host
+    read back only the kept candidates (one readback at `affinity.kept`,
+    25 bytes a kept candidate, `stats["affinity_kept"]` of them), which
+    are the twin's and include every candidate the native sweep passes;
+    the model's graph equals `build_affinity_graph` on the CPU, field for
+    field."""
     from line3d_tpu_torch import trace
-    from line3d_tpu_torch.cluster import affinity
+    from line3d_tpu_torch.cluster import affinity, affinity_cuda as ka
     from line3d_tpu_torch.utils import scale_exact_profile as sep
     cfg = sep.make_config()
     sc, cams = sep.make_scene(25, scene, cfg, dev)
-    seen = {"graph": [], "enum": []}
-    origs = {name: getattr(affinity, name) for name in
-             ("build_affinity_graph", "enumerate_candidates")}
+    seen = {"graph": [], "enum": [], "kept": []}
+    origs = {(mod, name): getattr(mod, name) for mod, name in (
+        (affinity, "build_affinity_graph"),
+        (affinity, "enumerate_candidates"), (ka, "kept_candidates"))}
 
-    def spy(name, key):
+    def spy(mod, name, key):
         def fn(*a, **k):
-            out = origs[name](*a, **k)
+            out = origs[mod, name](*a, **k)
             seen[key].append((a, k, out))
             return out
         return fn
-    affinity.build_affinity_graph = spy("build_affinity_graph", "graph")
-    affinity.enumerate_candidates = spy("enumerate_candidates", "enum")
+    affinity.build_affinity_graph = spy(affinity, "build_affinity_graph",
+                                        "graph")
+    affinity.enumerate_candidates = spy(affinity, "enumerate_candidates",
+                                        "enum")
+    ka.kept_candidates = spy(ka, "kept_candidates", "kept")
     try:
         with trace.recording():
             _, l3d, launches, _ = sep.run_once(cfg, sc, cams, 0.0, dev)
             counters = trace.collect()["counters"]
     finally:
-        for name, fn in origs.items():
-            setattr(affinity, name, fn)
-    assert launches["affinity_enum"] == 4
+        for (mod, name), fn in origs.items():
+            setattr(mod, name, fn)
+    assert launches["affinity_enum"] == 4 + 2
     [(g_args, g_kw, graph)] = seen["graph"]
-    [(e_args, _, got)] = seen["enum"]
+    [(e_args, _, stream)] = seen["enum"]
+    [(_, _, kept)] = seen["kept"]
     assert g_kw["device"].type == e_args[-1].type == "cuda"
     want = affinity.enumerate_candidates(*e_args[:-1], device="cpu")
-    assert_same_stream(got, want)
-    n = len(want[0])
+    assert_same_stream(ka.read_stream(stream), want)
+    n, m = len(want[0]), len(kept[0])
     assert l3d.stats["affinity_candidates"] == n > 0
-    assert counters["syncs.affinity.candidates"] == 1
-    assert counters["dtoh_bytes.affinity.candidates"] == 25 * n
+    assert l3d.stats["affinity_kept"] == counters["affinity.kept"] == m > 0
+    # the whole stream stays on the card; the host reads the kept part
+    assert "syncs.affinity.candidates" not in counters
+    assert counters["syncs.affinity.kept_count"] == 1
+    assert counters["syncs.affinity.kept"] == 1
+    assert counters["dtoh_bytes.affinity.kept"] == 25 * m
+    _hold_filter(kept, want, g_args[0], g_args[3], g_args[4])
     host = affinity.build_affinity_graph(*g_args, device="cpu")
     assert graph.num_nodes == host.num_nodes > 0
     for f in ("edges_i", "edges_j", "edges_w", "node_view", "node_seg"):

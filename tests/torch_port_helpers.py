@@ -422,6 +422,78 @@ def assert_same_stream(got, want):
         np.testing.assert_array_equal(g, w, name)
 
 
+def small_facade_affinity():
+    """(best, cams, config, stream) of one exact model of a small facade
+    on the CPU (5 views of 960 x 720, 5 x 4 cells, ~4 s): the affinity
+    stage's inputs as `build_affinity_graph` got them and the walk's
+    candidate stream (6,414 candidates of all three kinds, 2,795 of them
+    passing)."""
+    from line3d_tpu_torch import Line3D, L3DConfig
+    from line3d_tpu_torch.cluster import affinity
+    from line3d_tpu_torch.utils.demo import make_facade_scene
+    scene, cams = make_facade_scene(num_views=5, width=960, height=720,
+                                    focal=900.0, n_cols=5, n_rows=4,
+                                    distance=6.5, device="cpu")
+    seen = {}
+    build, enum = affinity.build_affinity_graph, affinity.enumerate_candidates
+
+    def spy_build(*a, **k):
+        seen["inputs"] = a
+        return build(*a, **k)
+
+    def spy_enum(*a, **k):
+        seen["stream"] = enum(*a, **k)
+        return seen["stream"]
+    affinity.build_affinity_graph = spy_build
+    affinity.enumerate_candidates = spy_enum
+    try:
+        l3d = Line3D(config=L3DConfig(), device="cpu")
+        for v in range(scene.num_views):
+            l3d.add_view_segments(
+                v, scene.segments[v][scene.seg_mask[v]], cams.K[v],
+                cams.R[v], cams.t[v], worldpoint_ids=scene.wp_lists[v],
+                width=int(cams.width[v]), height=int(cams.height[v]))
+        l3d.compute_3d_model()
+    finally:
+        affinity.build_affinity_graph = build
+        affinity.enumerate_candidates = enum
+    best, _, _, cams, config, _ = seen["inputs"]
+    return best, cams, config, seen["stream"]
+
+
+def best_rows(best, n, seed):
+    """n rows of a BestMatches as one: a run of neighbours in the order of
+    their midpoints from a start drawn from `seed`, so that pairs among
+    them both pass and fail the affinity thresholds."""
+    import dataclasses
+    order = np.lexsort(((best.P1 + best.P2) / 2).T[::-1])
+    start = np.random.default_rng(seed).integers(0, len(order) - n + 1)
+    rows = order[start:start + n]
+    return dataclasses.replace(best, **{f.name: getattr(best, f.name)[rows]
+                                        for f in dataclasses.fields(best)})
+
+
+def native_weights(best, stream, cams, config):
+    """The host's native sweep's thresholded weights of a whole candidate
+    stream (-1 where a candidate fails), at any stream length."""
+    from line3d_tpu_torch.cluster import affinity
+    n = len(stream[0])
+    return affinity._candidate_weights_range(
+        best, *stream, cams, config, 0, n,
+        n_stream=max(n, affinity.NATIVE_SIM_THRESHOLD + 1))
+
+
+def assert_same_graph(got, want):
+    """Two AffinityGraphs equal field for field, dtypes included, but for
+    `num_kept` (how many candidates the host weighed to build them)."""
+    for f in ("edges_i", "edges_j", "edges_w", "node_view", "node_seg"):
+        a, b = getattr(got, f), getattr(want, f)
+        assert a.dtype == b.dtype, f
+        np.testing.assert_array_equal(a, b, f)
+    assert (got.num_nodes, got.num_candidates) == \
+        (want.num_nodes, want.num_candidates)
+
+
 # Hand-built inputs of the enumeration on 3 views of 8 segments (key =
 # view * 8 + segment): (best-match keys, correspondence pairs, collinear
 # triples (view, i, j)), each with the (source key, target key, kind) the
